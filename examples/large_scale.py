@@ -11,9 +11,8 @@ run_mmctm.jl:52) and beyond:
    boundaries by default);
 3. fit the full restart fleet with `compact_schedule=...` — converged
    lanes are compacted out on device instead of idling until the slowest
-   straggler finishes (measured 13.6 s unchunked -> 3.3 s for BRCA R=1000
-   on one v5e chip at the round-4 solver budgets; bit-identical results
-   on CPU, f32-rounding-equivalent on TPU).
+   straggler finishes (bit-identical results on CPU, f32-rounding-
+   equivalent on the GPU).
 
     python examples/large_scale.py [--restarts N] [--pilot N]
 """

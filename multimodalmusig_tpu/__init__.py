@@ -1,11 +1,12 @@
-"""multimodalmusig_tpu — TPU-native multi-modal mutation-signature topic models.
+"""multimodalmusig_tpu — multi-modal mutation-signature topic models in JAX.
 
 A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of
 shahcompbio/MultiModalMuSig.jl (reference mounted at /root/reference): four
 Bayesian topic models (LDA, ILDA, MMCTM, IMMCTM) fit by coordinate-ascent
 variational inference, with the reference's public surface
-(src/MultiModalMuSig.jl:9 exports) plus TPU-first extensions (vmapped
-multi-restart fitting, device-mesh sharding, jitted fit loops).
+(src/MultiModalMuSig.jl:9 exports) plus accelerator extensions (vmapped
+multi-restart fitting, device-mesh sharding, jitted fit loops) for NVIDIA
+GPUs.
 """
 
 from .models.ilda import ILDA, fit_heldout as ilda_fit_heldout, transform as ilda_transform

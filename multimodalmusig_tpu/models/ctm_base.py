@@ -62,24 +62,21 @@ class CTMBaseConfig:
     # λ_t + c·(λ_t − λ_{t-1}) instead of λ_t (None/0 = off). The CAVI λ
     # sequence converges geometrically, so a linear predictor lands the
     # start closer to the optimum than the previous iterate does — a
-    # fewer-sequential-steps lever on the Newton/PCG dependency chain that
-    # dominates the iteration (NOTES.md round-5 item 3). Probed on-chip by
-    # tools/lambda_extrap_ab.py; only the fit loops see it (the first
-    # iteration has λ_{t-1} = λ_t, so cold starts are unaffected).
+    # fewer-sequential-steps lever on the Newton/PCG dependency chain.
+    # Probed by tools/lambda_extrap_ab.py; only the fit loops see it (the
+    # first iteration has λ_{t-1} = λ_t, so cold starts are unaffected).
     lambda_extrap: Any = None
     # Newton-direction solver for the λ maximizer: None = the default
     # ("pcg", batched Jacobi-PCG — ops/solvers.py _cg_solve), "chol" = the
-    # fully unrolled direct Cholesky solve (_chol_solve) — the
-    # fewer-sequential-steps alternative to the PCG dependency chain,
-    # A/B'd on-chip by tools/chol_ab.py. Static (jit cache key). "chol"
-    # bypasses the fused Pallas kernel (which implements PCG only).
+    # fully unrolled direct Cholesky solve (_chol_solve), A/B'd by
+    # tools/chol_ab.py. Static (jit cache key). "chol" bypasses the fused
+    # λ kernel, which implements PCG only.
     lambda_solver: Any = None
-    # Fused-λ-kernel override: None = auto (MUSIG_PALLAS / backend gate in
-    # _use_fused_lambda), True/False = force. Static (part of the jit cache
-    # key), so a per-trace decision is explicit rather than ambient — the
-    # shard_map restart wrapper (parallel/sharding.py) uses True to keep the
-    # per-device Pallas kernel on multi-chip meshes, where the auto gate must
-    # step aside (GSPMD cannot partition a pallas_call).
+    # Fused-λ-kernel switch: None = decided by fused_lambda_enabled on the
+    # default device; True/False = decided by the caller, who knows the
+    # devices of the program: a GSPMD-partitioned fit turns it off (GSPMD
+    # cannot partition a pallas_call), a shard_map body over GPUs turns it
+    # on. Static (part of the jit cache key).
     force_fused: Any = None
 
     @property
@@ -123,7 +120,8 @@ def calculate_sumtheta(theta: Sequence[jnp.ndarray], X: Sequence[jnp.ndarray], c
     """(D, MK): per-topic expected counts, concatenated over modalities
     (src/MMCTM.jl:110-117, src/IMMCTM.jl:90-96)."""
     parts = [
-        jnp.einsum("dv,dvk->dk", X[m], theta[m], preferred_element_type=config.dtype)
+        jnp.einsum("dv,dvk->dk", X[m], theta[m], preferred_element_type=config.dtype,
+                   precision=jax.lax.Precision.HIGHEST)
         for m in range(config.M)
     ]
     return jnp.concatenate(parts, axis=1)
@@ -147,8 +145,8 @@ def theta_moments(lam, logw, X, config, want_scatter: bool = True):
 
     This is the same math on a different schedule: exps drop from
     D·Σ_m V_m·K_m (~0.56M per BRCA lane-iteration) to D·MK + Σ_m V_m·K_m
-    (~9k, ~64×), and the dominant contractions become MXU matmuls over
-    (D, V_m) instead of VPU-bound einsums against a (D, V_m, K_m) softmax.
+    (~9k, ~64×), and the dominant contractions become matmuls over
+    (D, V_m) instead of einsums against a (D, V_m, K_m) softmax.
     Stabilization: every A, B entry is ≤ 1, so Z never overflows. Underflow
     is NOT fully equivalent to the materialized softmax, which subtracts the
     per-(d,v) JOINT max and is immune: here Z_dv flushes to 0 when every
@@ -163,21 +161,10 @@ def theta_moments(lam, logw, X, config, want_scatter: bool = True):
     — fitted models never get there (BRCA/PCAWG spreads are tens of nats);
     data that does can pin `MUSIG_THETA_FACTORIZED=0` for the exact path.
 
-    Precision: all three contractions run at Precision.HIGHEST. The TPU's
-    default f32 matmul is a single bf16 pass (~3e-3 rel. error); with the
-    factorization that error lands on the softmax NORMALIZER Z, giving
-    every θ a correlated ~3e-3 bias that the materialized path (exact f32
-    VPU softmax) never had — measured on the v5e it cost ~9% more outer
-    CAVI iterations on BRCA (median 132 → 144) and mis-placed every
-    pre-tuned compaction schedule. Four lowerings were A/B'd on-chip
-    (round 4): bf16 einsums (2.13 ms/CAVI-iter, median 144), HIGHEST
-    einsums (2.39 ms, median 128.5), and two VPU k-unrolled variants
-    (2.55/2.36 ms — the extra passes land on the VPU, which is the
-    saturated unit, while the MXU is otherwise idle). The
-    iterations × per-iteration products all tie to ~5%, so the exact
-    single-code-path einsum wins: it keeps TPU trajectories closest to the
-    (exact-f32) CPU ones and has the shortest straggler tail
-    (max 385 vs 406 iters).
+    Precision: all three contractions run at Precision.HIGHEST. A float32
+    matmul may otherwise run in TF32 on a GPU (10 mantissa bits), and with
+    the factorization that error lands on the softmax NORMALIZER Z, giving
+    every θ a correlated bias that the materialized path never had.
     """
     dt = config.dtype
     hi = jax.lax.Precision.HIGHEST
@@ -233,6 +220,7 @@ def theta_moments_auto(lam, logw, X, config, want_scatter: bool = True):
             jnp.einsum(
                 "dv,dvk->kv", X[m], theta[m],
                 preferred_element_type=config.dtype,
+                precision=jax.lax.Precision.HIGHEST,
             )
             for m in range(config.M)
         )
@@ -254,42 +242,30 @@ def solve_nu(nu, lam, Ndivzeta, invSigma, n_iter=None):
     return maximize_nu(nu, lam, Ndivzeta, jnp.diagonal(invSigma)[None, :], **kw)
 
 
-def _use_fused_lambda(force=None) -> bool:
-    """Gate for the fused Pallas λ kernel (ops/pallas/lambda_kernel.py).
+def _default_device():
+    """The device an unsharded computation runs on."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.devices()[0]
+    return jax.devices(dev)[0] if isinstance(dev, str) else dev
 
-    `force` (from CTMBaseConfig.force_fused) short-circuits the auto logic:
-    True inside per-device shard_map bodies (local shapes, kernel legal),
-    False to pin the XLA path.
 
-    Default (`MUSIG_PALLAS` unset or `auto`): on exactly when the default
-    backend is a TPU — measured 1.22x end-to-end on the 100-restart BRCA
-    benchmark (0.60 vs 0.73 s unchunked at the round-4 operating point,
-    tools/pallas_fit_ab.py). The margin tracks how much per-iteration
-    overhead the kernel amortizes relative to CG FLOPs: 1.51x at round 3,
-    1.09x after the exp-factorized E-step sped the XLA arm, 1.22x after
-    the warm-start Newton budget shrank the CG work again.
-    `MUSIG_PALLAS=1` forces it on
-    (e.g. interpret-mode tests), `MUSIG_PALLAS=0` forces the XLA path.
-    The two paths differ only in f32 rounding (~1e-8 per solve).
+def fused_lambda_enabled(MK: int, dtype, devices) -> bool:
+    """Whether the fused λ kernel (ops/pallas/lambda_kernel.py) serves a λ
+    solve. `devices` are the devices one instance of the program runs on:
+    the default device for a plain fit, one device of a shard_map body, the
+    whole mesh for a GSPMD-partitioned fit. The kernel serves a float32
+    solve with MK within its limit on exactly one GPU (GSPMD cannot
+    partition a pallas_call)."""
+    from ..ops.pallas.lambda_kernel import FUSED_MAX_MK
 
-    The env var is resolved once at import (ops/flags.py): the gate runs at
-    trace time and jit caches don't key on the environment, so a re-read
-    here would make mid-process env flips silently ineffective.
-    """
-    from ..ops import flags
-
-    if force is not None:
-        return bool(force)
-    if flags.PALLAS in ("0", "1"):
-        return flags.PALLAS == "1"
-    try:
-        # Single-device TPU only: GSPMD cannot partition a pallas_call, so a
-        # multi-chip sharded fit must take the XLA path (which partitions
-        # cleanly). Force MUSIG_PALLAS=1 to override (e.g. with shard_map
-        # wrappers that keep per-device shapes).
-        return jax.default_backend() == "tpu" and jax.device_count() == 1
-    except Exception:
-        return False
+    devices = list(devices)
+    return (
+        len(devices) == 1
+        and devices[0].platform == "gpu"
+        and MK <= FUSED_MAX_MK
+        and jnp.dtype(dtype) == jnp.dtype(jnp.float32)
+    )
 
 
 def solve_lambda(lam, nu, Ndivzeta, sumtheta, mu, invSigma,
@@ -297,11 +273,13 @@ def solve_lambda(lam, nu, Ndivzeta, sumtheta, mu, invSigma,
                  solver=None):
     """Batched λ maximization (replaces NLopt at src/MMCTM.jl:127-143).
 
-    `n_iter`/`cg_iter`/`polish_iter` override the solver's measured defaults
+    `n_iter`/`cg_iter`/`polish_iter` override the solver's defaults
     (7 Newton iterations, MK CG iterations, 2 polish rounds — ops/solvers.py
     maximize_lambda) for callers whose problems outgrow the BRCA-tuned
     budget, or — via solve_eta's dtype-gated resolution — shrink them to
-    the warm-start fit-loop caps."""
+    the warm-start fit-loop caps. `force_fused` is CTMBaseConfig.force_fused
+    (None = fused_lambda_enabled on the default device). The fused kernel
+    and the XLA path agree to float32 rounding."""
     kw = {}
     if n_iter is not None:
         kw["n_iter"] = int(n_iter)
@@ -310,11 +288,16 @@ def solve_lambda(lam, nu, Ndivzeta, sumtheta, mu, invSigma,
     if polish_iter is not None:
         kw["polish_iter"] = int(polish_iter)
     if solver is not None and str(solver) != "pcg":
-        # the fused Pallas kernel implements the PCG direction only
+        # the fused kernel implements the PCG direction only
         return maximize_lambda(
             lam, nu, Ndivzeta, sumtheta, mu, invSigma, solver=str(solver), **kw
         )
-    if _use_fused_lambda(force_fused) and lam.shape[-1] <= 128:
+    fused = (
+        bool(force_fused)
+        if force_fused is not None
+        else fused_lambda_enabled(lam.shape[-1], lam.dtype, [_default_device()])
+    )
+    if fused:
         from ..ops.pallas.lambda_kernel import maximize_lambda_fused
 
         return maximize_lambda_fused(lam, nu, Ndivzeta, sumtheta, mu, invSigma, **kw)
@@ -335,7 +318,7 @@ def resolved_budgets(config) -> dict:
     BRCA and PCAWG, and can be lifted globally with MUSIG_F32_FULL_BUDGETS=1
     or per-model via the config fields (which always win). Exposed as a
     function so verbose fit output and tests can report exactly what a fit
-    resolved (ADVICE r4: the silent f32 shrink must be inspectable)."""
+    resolved (the f32 shrink must be inspectable)."""
     from ..ops import flags
     from ..ops.solvers import (
         CG_F32_CAVI,
@@ -378,14 +361,8 @@ def solve_eta(lam, nu, N, sumtheta, mu, invSigma, config, lam_prev=None):
     default to the measured warm-start caps; MUSIG_F32_FULL_BUDGETS=1 or
     the config fields override).
 
-    Kernel policy, decided by measurement (tools/pallas_fit_ab.py, 100
-    vmapped BRCA restarts on the v5e chip): the λ solve alone fused
-    (solve_lambda's gate) wins 1.24x end-to-end over pure XLA; fusing ζ/ν
-    in as well measured neutral-to-losing at every operating point and
-    loses outright at the round-5 cg=4 budgets (0.92x vs XLA), so that
-    kernel was demoted to tools/pallas_experiments/estep_kernel.py. The
-    fused and XLA λ paths agree to f32 rounding (mirrored op-for-op;
-    tests/test_pallas_kernels.py).
+    The λ solve takes the fused GPU kernel where solve_lambda's gate
+    allows; ζ and ν stay XLA ops.
     """
     budgets = resolved_budgets(config)
     kw = {
@@ -424,14 +401,12 @@ def _spd_inverse_unrolled(S: jnp.ndarray) -> jnp.ndarray:
     at HIGHEST precision. Works batched (leading dims broadcast).
 
     Rationale: XLA's batched cho_factor/cho_solve lowers to dynamic-slice
-    While loops that run ~100x off roofline at (R, 14, 14) on TPU (the same
-    pathology that made the λ solver drop Cholesky for PCG — NOTES.md
-    round 1); the M-step pays that inverse once per CAVI iteration per
-    restart lane. Unrolling turns it into ~2·MK sequential steps of small
-    batched vector ops: measured 1.461 → 1.343 ms/CAVI-iter at R=100 on
-    the v5e (tools/sigma_ab.py, round 5). Same algorithm, different
-    schedule: f64 agrees with np.linalg.inv to ~2e-14 relative; f32 agrees
-    with cho_solve to ~1.4e-5 relative at BRCA-like conditioning."""
+    While loops at (R, 14, 14); the M-step pays that inverse once per CAVI
+    iteration per restart lane. Unrolling turns it into ~2·MK sequential
+    steps of small batched vector ops (A/B: tools/sigma_ab.py). Same
+    algorithm, different schedule: f64 agrees with np.linalg.inv to ~2e-14
+    relative; f32 agrees with cho_solve to ~1.4e-5 relative at BRCA-like
+    conditioning."""
     n = S.shape[-1]
     hi = jax.lax.Precision.HIGHEST
     cols = []  # cols[j]: (..., n) column j of L, zeroed above the diagonal
@@ -466,10 +441,9 @@ def spd_inverse(Sigma: jnp.ndarray) -> jnp.ndarray:
     """Cholesky inverse of an SPD matrix (vs. LU `inv` at src/MMCTM.jl:211).
 
     Mutation-signature-sized matrices take the unrolled schedule
-    (_spd_inverse_unrolled — measured 8% off the whole CAVI iteration).
-    The threshold stays near the measured sizes (MK=14 BRCA, 19 PCAWG):
-    the unrolled form traces O(n³/6) ops into the loop body, so a much
-    larger MK would trade an unmeasured compile-time blowup for an
+    (_spd_inverse_unrolled). The threshold stays near the BRCA and PCAWG
+    sizes (MK=14, 19): the unrolled form traces O(n³/6) ops into the loop
+    body, so a much larger MK would trade a compile-time blowup for an
     unmeasured win — bigger matrices keep cho_factor/cho_solve."""
     if Sigma.shape[-1] <= 20:
         return _spd_inverse_unrolled(Sigma)
@@ -483,9 +457,8 @@ def update_Sigma_mats(lam, nu, mu, D):
     """Σ = (Σ_d diag(ν_d) + (λ_d-μ)(λ_d-μ)ᵀ)/D and invΣ (src/MMCTM.jl:204-212).
 
     The Gram matrix runs at HIGHEST precision: Σ can be ill-conditioned (its
-    smallest diagonal reaches ~5e-3 on the BRCA workload), and the TPU's
-    default single-bf16-pass f32 matmul (~3e-3 rel. error) would poison
-    every downstream Σ⁻¹ solve."""
+    smallest diagonal reaches ~5e-3 on the BRCA workload), and a TF32 pass
+    (10 mantissa bits) would poison every downstream Σ⁻¹ solve."""
     E = lam - mu[None, :]
     gram = jnp.matmul(E.T, E, precision=jax.lax.Precision.HIGHEST)
     Sigma = (jnp.diag(nu.sum(axis=0)) + gram) / D
@@ -525,8 +498,7 @@ def run_cavi_from(carry, maxiter, tol, step_fn, verbose=False, max_new_iters=Non
     """Resume the CAVI while_loop from an existing carry for up to
     `max_new_iters` more iterations (None = to maxiter). Chunked resumption
     keeps each device execution bounded — long fits are driven as a host loop
-    over chunks, which matters on remote-attached accelerators where a single
-    multi-minute execution can trip runtime watchdogs."""
+    over chunks, which lets a caller observe progress between chunks."""
     it0 = carry[2]
     limit = (
         jnp.int32(maxiter)
@@ -577,7 +549,8 @@ def elbo_eta_z_term_dict(lam, nu, zeta, mu, invSigma, theta, X, N, config):
     Ediff = lam - mu[None, :]
     chol = jnp.linalg.cholesky(invSigma)
     logdet = 2.0 * jnp.sum(jnp.log(jnp.diagonal(chol)))
-    quad = jnp.einsum("di,ij,dj->", Ediff, invSigma, Ediff)
+    quad = jnp.einsum("di,ij,dj->", Ediff, invSigma, Ediff,
+                      precision=jax.lax.Precision.HIGHEST)
     trace = jnp.sum(nu * jnp.diagonal(invSigma)[None, :])
     ElnPeta = 0.5 * (D * logdet - D * MK * jnp.log(2 * jnp.pi) - trace - quad)
 

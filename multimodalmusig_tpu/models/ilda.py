@@ -1,4 +1,4 @@
-"""Independent-feature LDA (ILDA), TPU-native.
+"""Independent-feature LDA (ILDA) on accelerators.
 
 Re-implementation of the reference's src/ILDA.jl (353 LoC Julia): LDA where
 the vocabulary factorizes into I independent features via a lookup table
@@ -6,9 +6,9 @@ the vocabulary factorizes into I independent features via a lookup table
 per-feature Dirichlets, p(v|k) = Π_i β_i[features[v,i], k]
 (src/ILDA.jl:18, 222-229).
 
-TPU-first re-architecture: the feature lookup becomes per-feature one-hot
+Accelerator re-architecture: the feature lookup becomes per-feature one-hot
 matrices F_i : (V, J_i), so every gather/scatter in the reference's token
-loops becomes a matmul on the MXU —
+loops becomes a matmul (at HIGHEST precision, an exact lookup) —
   * summed log-topic terms Σ_i Elnβ_i[features[v,i], :] = Σ_i F_i @ Elnβ_i
     (replaces the w×i loop at src/ILDA.jl:65-79);
   * the λ scatter-add λ_i[j,:] += Nϕ[w,:] becomes F_iᵀ @ (Σ_d X·ϕ)
@@ -40,6 +40,11 @@ from ..ops.convergence import MIN_ITERS_BEFORE_CONVERGENCE, relative_change
 from ..ops.special import dirichlet_expectation, gammaln, safe_xlogy, xlogx
 from .ctm_base import carry_converged
 from ..utils.formatting import infer_vocab_size, sparse_to_dense
+
+# float32 contractions pin HIGHEST: unpinned, a GPU may run them in TF32
+# (10 mantissa bits). The one-hot feature products at HIGHEST are exact
+# lookups.
+_HI = jax.lax.Precision.HIGHEST
 
 __all__ = ["ILDAConfig", "ILDAState", "ILDAFitResult", "ILDA", "transform", "fit_heldout"]
 
@@ -129,9 +134,9 @@ def summed_Elnbeta(
 ) -> jnp.ndarray:
     """(V, K): Σ_i Elnβ_i[features[v,i], :] as one-hot matmuls
     (replaces the per-token feature loop at src/ILDA.jl:65-79)."""
-    total = F[0] @ Elnbeta[0]
+    total = jnp.matmul(F[0], Elnbeta[0], precision=_HI)
     for i in range(1, len(F)):
-        total = total + F[i] @ Elnbeta[i]
+        total = total + jnp.matmul(F[i], Elnbeta[i], precision=_HI)
     return total
 
 
@@ -167,7 +172,7 @@ def update_gamma(
     if phi is None:
         phi = reconstruct_phi(state)
     gamma = config.alpha + jnp.einsum(
-        "dv,dvk->dk", X, phi, preferred_element_type=config.dtype
+        "dv,dvk->dk", X, phi, preferred_element_type=config.dtype, precision=_HI
     )
     return state._replace(gamma=gamma, Elntheta=dirichlet_expectation(gamma, axis=1))
 
@@ -179,9 +184,12 @@ def update_lambda(
     """λ_i[j,:] = η_i + F_iᵀ·(Σ_d X·ϕ) (src/ILDA.jl:107-126)."""
     if phi is None:
         phi = reconstruct_phi(state)
-    W = jnp.einsum("dv,dvk->vk", X, phi, preferred_element_type=config.dtype)
+    W = jnp.einsum(
+        "dv,dvk->vk", X, phi, preferred_element_type=config.dtype, precision=_HI
+    )
     lam = tuple(
-        config.eta[i] + F[i].T @ W for i in range(config.I)
+        config.eta[i] + jnp.matmul(F[i].T, W, precision=_HI)
+        for i in range(config.I)
     )
     return state._replace(
         lam=lam, Elnbeta=tuple(dirichlet_expectation(l, axis=0) for l in lam)
@@ -212,7 +220,7 @@ def loglikelihood(
     X: jnp.ndarray, theta: jnp.ndarray, beta: Sequence[jnp.ndarray], F: Sequence[jnp.ndarray]
 ) -> jnp.ndarray:
     """Per-word mixture log-likelihood (src/ILDA.jl:209-236)."""
-    P = theta @ vocab_topic_probs(beta, F).T  # (D, V)
+    P = jnp.matmul(theta, vocab_topic_probs(beta, F).T, precision=_HI)  # (D, V)
     return jnp.sum(safe_xlogy(X, P)) / jnp.sum(X)
 
 
@@ -233,8 +241,10 @@ def calculate_elbo(
         ElnPbeta += (eta_i - 1.0) * jnp.sum(state.Elnbeta[i])
 
     ElnPtheta = D * (gammaln(K * alpha) - K * gammaln(alpha)) + (alpha - 1.0) * jnp.sum(state.Elntheta)
-    ElnPZ = jnp.einsum("dvk,dk,dv->", phi, state.Elntheta, X)
-    ElnPX = jnp.einsum("dvk,vk,dv->", phi, summed_Elnbeta(state.Elnbeta, F), X)
+    ElnPZ = jnp.einsum("dvk,dk,dv->", phi, state.Elntheta, X, precision=_HI)
+    ElnPX = jnp.einsum(
+        "dvk,vk,dv->", phi, summed_Elnbeta(state.Elnbeta, F), X, precision=_HI
+    )
 
     ElnQbeta = jnp.zeros((), config.dtype)
     for i in range(config.I):

@@ -1,4 +1,4 @@
-"""Independent-feature Multi-Modal CTM (IMMCTM), TPU-native.
+"""Independent-feature Multi-Modal CTM (IMMCTM) on accelerators.
 
 Re-implementation of the reference's src/IMMCTM.jl (545 LoC Julia):
 MMCTM x ILDA — a joint logistic-normal over all modalities' topics with
@@ -6,7 +6,7 @@ per-modality *feature-factorized* topic-word distributions
 p_m(v|k) = Π_i ϕ_m,k,i[features_m[v,i]] and per-modality-per-feature
 Dirichlet hyperparameters α[m][i] (src/IMMCTM.jl:13, 22).
 
-TPU-first re-architecture: as in ILDA, each modality's feature lookup
+Accelerator re-architecture: as in ILDA, each modality's feature lookup
 becomes one-hot matrices F_m,i : (V_m, J_mi), turning the reference's 4-deep
 nested loops (src/IMMCTM.jl:152-172 update_θ!, 199-223 update_γ!) into
 matmuls; the logistic-normal document side reuses the shared batched E-step
@@ -54,6 +54,11 @@ from .ctm_base import (
     update_zeta as _base_update_zeta,
 )
 from .ilda import feature_onehots
+
+# float32 contractions pin HIGHEST: unpinned, a GPU may run them in TF32
+# (10 mantissa bits). The one-hot feature products at HIGHEST are exact
+# lookups.
+_HI = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "IMMCTMConfig",
@@ -163,9 +168,9 @@ def summed_Elnphi(
 ) -> jnp.ndarray:
     """(V_m, K_m): Σ_i Elnϕ_m,k,i[features[v,i]] via one-hot matmuls
     (replaces the k×w×i loop at src/IMMCTM.jl:152-172)."""
-    total = F_m[0] @ Elnphi_m[0].T
+    total = jnp.matmul(F_m[0], Elnphi_m[0].T, precision=_HI)
     for i in range(1, len(F_m)):
-        total = total + F_m[i] @ Elnphi_m[i].T
+        total = total + jnp.matmul(F_m[i], Elnphi_m[i].T, precision=_HI)
     return total
 
 
@@ -279,7 +284,8 @@ def update_gamma(
             theta = reconstruct_theta(state, config)
         scatter = tuple(
             jnp.einsum(
-                "dv,dvk->kv", X[m], theta[m], preferred_element_type=config.dtype
+                "dv,dvk->kv", X[m], theta[m], preferred_element_type=config.dtype,
+                precision=_HI,
             )
             for m in range(config.M)
         )
@@ -287,7 +293,10 @@ def update_gamma(
     for m in range(config.M):
         W = scatter[m]
         gamma.append(
-            tuple(state.alpha[m][i] + W @ F[m][i] for i in range(config.I[m]))
+            tuple(
+                state.alpha[m][i] + jnp.matmul(W, F[m][i], precision=_HI)
+                for i in range(config.I[m])
+            )
         )
     gamma = tuple(gamma)
     return state._replace(
@@ -345,7 +354,7 @@ def modality_loglikelihoods(
     out = []
     for m in range(config.M):
         B = vocab_topic_probs(phi[m], F[m])  # (K_m, V_m)
-        P = props[m] @ B  # (D, V_m)
+        P = jnp.matmul(props[m], B, precision=_HI)  # (D, V_m)
         out.append(jnp.sum(safe_xlogy(X[m], P)) / jnp.sum(X[m]))
     return jnp.stack(out)
 
@@ -366,7 +375,7 @@ def docmodality_loglikelihoods(
     cols = []
     for m in range(config.M):
         B = vocab_topic_probs(phi[m], F[m])
-        P = props[m] @ B
+        P = jnp.matmul(props[m], B, precision=_HI)  # (D, V_m)
         cols.append(jnp.sum(safe_xlogy(X[m], P), axis=1) / jnp.sum(X[m], axis=1))
     return jnp.stack(cols, axis=1)
 
@@ -399,7 +408,8 @@ def calculate_elbo(
     ElnPX = jnp.zeros((), dt)
     for m in range(config.M):
         ElnPX += jnp.einsum(
-            "dv,dvk,vk->", X[m], theta[m], summed_Elnphi(state.Elnphi[m], F[m])
+            "dv,dvk,vk->", X[m], theta[m], summed_Elnphi(state.Elnphi[m], F[m]),
+            precision=_HI,
         )
 
     # ElnQϕ (src/IMMCTM.jl:318-331)
@@ -412,7 +422,7 @@ def calculate_elbo(
     # ElnQZ (src/IMMCTM.jl:338-346) — count-weighted
     ElnQZ = jnp.zeros((), dt)
     for m in range(config.M):
-        ElnQZ += jnp.einsum("dv,dvk->", X[m], xlogx(theta[m]))
+        ElnQZ += jnp.einsum("dv,dvk->", X[m], xlogx(theta[m]), precision=_HI)
 
     return ElnPphi + eta_z + ElnPX - ElnQphi - ElnQZ
 
@@ -599,10 +609,12 @@ def predict_modality_eta_states(
         obs_state, obs_config, maxiter, tol, step, verbose
     )
     converged = carry_converged(ll_buf, n_iters, done)
-    eta = (
-        trained.mu[unobs][None, :]
-        + (obs_state.lam - trained.mu[obs][None, :])
-        @ (trained.Sigma[np.ix_(unobs, obs)] @ trained.invSigma[np.ix_(obs, obs)]).T
+    gain = jnp.matmul(
+        trained.Sigma[np.ix_(unobs, obs)], trained.invSigma[np.ix_(obs, obs)],
+        precision=_HI,
+    )
+    eta = trained.mu[unobs][None, :] + jnp.matmul(
+        obs_state.lam - trained.mu[obs][None, :], gain.T, precision=_HI
     )
     return eta, obs_state, converged
 

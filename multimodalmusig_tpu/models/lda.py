@@ -1,12 +1,12 @@
-"""Smoothed LDA fit by coordinate-ascent variational inference, TPU-native.
+"""Smoothed LDA fit by coordinate-ascent variational inference.
 
 Re-implementation of the reference's src/LDA.jl (295 LoC Julia) as a pure
 functional JAX core plus a thin stateful wrapper mirroring the Julia API.
 
-Idiomatic differences from the reference (same math, TPU-first layout):
+Idiomatic differences from the reference (same math, accelerator layout):
   * Counts are a dense (D, V) tensor instead of ragged (n, 2) sparse docs
     (src/LDA.jl keeps per-doc sparse matrices); at V <= a few thousand the
-    dense form turns every update into one batched matmul on the MXU.
+    dense form turns every update into one batched matmul.
   * Responsibilities ϕ are a dense (D, V, K) tensor; the reference stores
     per-document (K, n_d) matrices (src/LDA.jl:47-50). Zero-count cells carry
     a well-defined softmax value but never contribute to count-weighted sums.
@@ -33,6 +33,10 @@ from ..ops.special import dirichlet_expectation, gammaln, safe_xlogy, xlogx
 from .ctm_base import carry_converged
 from ..utils.formatting import infer_vocab_size, sparse_to_dense
 
+# float32 contractions pin HIGHEST: unpinned, a GPU may run them in TF32
+# (10 mantissa bits).
+_HI = jax.lax.Precision.HIGHEST
+
 __all__ = ["LDAConfig", "LDAState", "LDAFitResult", "LDA", "transform", "fit_heldout"]
 
 
@@ -51,8 +55,8 @@ class LDAConfig:
 class LDAState(NamedTuple):
     """Variational state; a pytree of dense arrays.
 
-    Layouts are row-major batch-first ((D, K), (V, K), (D, V, K)) for TPU
-    lane alignment; the reference's column layouts ((K, D) etc., src/LDA.jl)
+    Layouts are row-major batch-first ((D, K), (V, K), (D, V, K)); the
+    reference's column layouts ((K, D) etc., src/LDA.jl)
     are restored by the wrapper's accessor properties.
     """
 
@@ -125,7 +129,7 @@ def update_gamma(
     if phi is None:
         phi = reconstruct_phi(state)
     gamma = config.alpha + jnp.einsum(
-        "dv,dvk->dk", X, phi, preferred_element_type=config.dtype
+        "dv,dvk->dk", X, phi, preferred_element_type=config.dtype, precision=_HI
     )
     return state._replace(gamma=gamma, Elntheta=dirichlet_expectation(gamma, axis=1))
 
@@ -148,7 +152,7 @@ def update_lambda(
     if phi is None:
         phi = reconstruct_phi(state)
     lam = config.eta + jnp.einsum(
-        "dv,dvk->vk", X, phi, preferred_element_type=config.dtype
+        "dv,dvk->vk", X, phi, preferred_element_type=config.dtype, precision=_HI
     )
     return state._replace(lam=lam, Elnbeta=dirichlet_expectation(lam, axis=0))
 
@@ -170,7 +174,7 @@ def theta_point(state: LDAState) -> jnp.ndarray:
 
 def loglikelihood(X: jnp.ndarray, theta: jnp.ndarray, beta: jnp.ndarray) -> jnp.ndarray:
     """Per-word mixture log-likelihood Σ X·log(θ·βᵀ) / N (src/LDA.jl:174-190)."""
-    P = theta @ beta.T  # (D, V)
+    P = jnp.matmul(theta, beta.T, precision=_HI)  # (D, V)
     return jnp.sum(safe_xlogy(X, P)) / jnp.sum(X)
 
 
@@ -188,8 +192,8 @@ def calculate_elbo(
 
     ElnPbeta = K * (gammaln(V * eta) - V * gammaln(eta)) + (eta - 1.0) * jnp.sum(state.Elnbeta)
     ElnPtheta = D * (gammaln(K * alpha) - K * gammaln(alpha)) + (alpha - 1.0) * jnp.sum(state.Elntheta)
-    ElnPZ = jnp.einsum("dvk,dk,dv->", phi, state.Elntheta, X)
-    ElnPX = jnp.einsum("dvk,vk,dv->", phi, state.Elnbeta, X)
+    ElnPZ = jnp.einsum("dvk,dk,dv->", phi, state.Elntheta, X, precision=_HI)
+    ElnPX = jnp.einsum("dvk,vk,dv->", phi, state.Elnbeta, X, precision=_HI)
     ElnQbeta = (
         jnp.sum(gammaln(state.lam))
         - jnp.sum(gammaln(jnp.sum(state.lam, axis=0)))

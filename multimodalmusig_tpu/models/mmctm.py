@@ -1,18 +1,18 @@
-"""Multi-Modal Correlated Topic Model (MMCTM), TPU-native — the flagship.
+"""Multi-Modal Correlated Topic Model (MMCTM) — the flagship.
 
 Re-implementation of the reference's src/MMCTM.jl (634 LoC Julia): a joint
 logistic-normal N(μ, Σ) over the concatenated topic space of all modalities
 (MK = ΣK_m dims) with per-modality Dirichlet topic-word distributions, fit by
 CAVI. A single-modality MMCTM is the classic CTM (reference README.md:67-73).
 
-TPU-first re-architecture (same math; SURVEY.md §7):
+Accelerator re-architecture (same math; SURVEY.md §7):
   * The per-document E-step loop (src/MMCTM.jl:463-465 `for d: fitdoc!`) is
     batched over all documents: ζ/θ closed forms become block softmaxes and
     einsums over (D, MK) / (D, V_m, K_m) tensors; the per-document NLopt
     LD_MMA solves for λ and ν (src/MMCTM.jl:127-143, 156-170) become the
     vmapped damped-Newton solvers in ops/solvers.py.
   * M-step sufficient statistics (μ, Σ, γ — src/MMCTM.jl:200-242) are batched
-    reductions (matmuls on the MXU); under jax.sharding these reduce across
+    reductions (matmuls); under jax.sharding these reduce across
     the device mesh with XLA-inserted psums.
   * Counts are dense (D, V_m) tensors; responsibilities θ are dense
     (D, V_m, K_m); zero-count cells never contribute to count-weighted sums.
@@ -34,7 +34,7 @@ Documented divergences from reference behavior (bug fixes, not math changes):
     copies from the constructor at src/MMCTM.jl:80).
   * Σ is inverted via Cholesky (`cho_solve` against I) rather than LU `inv`
     (src/MMCTM.jl:211) — Σ is SPD by construction; same result, better
-    conditioned and faster on TPU.
+    conditioned.
 """
 
 from __future__ import annotations
@@ -72,6 +72,10 @@ from .ctm_base import (
     update_mu_vec,
     update_zeta as _base_update_zeta,
 )
+
+# float32 contractions pin HIGHEST: unpinned, a GPU may run them in TF32
+# (10 mantissa bits).
+_HI = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "MMCTMConfig",
@@ -328,7 +332,8 @@ def update_gamma(
             theta = reconstruct_theta(state, config)
         scatter = tuple(
             jnp.einsum(
-                "dv,dvk->kv", X[m], theta[m], preferred_element_type=config.dtype
+                "dv,dvk->kv", X[m], theta[m], preferred_element_type=config.dtype,
+                precision=_HI,
             )
             for m in range(config.M)
         )
@@ -391,7 +396,9 @@ def elbo_terms(
     # ElnPX (src/MMCTM.jl:320-338)
     ElnPX = jnp.zeros((), dt)
     for m in range(config.M):
-        ElnPX += jnp.einsum("dv,dvk,kv->", X[m], theta[m], state.Elnphi[m])
+        ElnPX += jnp.einsum(
+            "dv,dvk,kv->", X[m], theta[m], state.Elnphi[m], precision=_HI
+        )
 
     # ElnQϕ (src/MMCTM.jl:340-352)
     ElnQphi = jnp.zeros((), dt)
@@ -402,7 +409,7 @@ def elbo_terms(
     # ElnQZ (src/MMCTM.jl:362-370) — count-weighted here (unlike LDA's)
     ElnQZ = jnp.zeros((), dt)
     for m in range(config.M):
-        ElnQZ += jnp.einsum("dv,dvk->", X[m], xlogx(theta[m]))
+        ElnQZ += jnp.einsum("dv,dvk->", X[m], xlogx(theta[m]), precision=_HI)
 
     return {
         "ElnPphi": ElnPphi,
@@ -444,7 +451,7 @@ def modality_loglikelihoods(
     weighting by N_d cancels to this form, and zero-count docs contribute 0)."""
     out = []
     for m in range(len(X)):
-        P = props[m] @ phi[m]  # (D, K_m) @ (K_m, V_m) -> (D, V_m)
+        P = jnp.matmul(props[m], phi[m], precision=_HI)  # (D, V_m)
         out.append(jnp.sum(safe_xlogy(X[m], P)) / jnp.sum(X[m]))
     return jnp.stack(out)
 
@@ -453,7 +460,8 @@ def doc_modality_loglikelihood(
     Xdm: jnp.ndarray, props: jnp.ndarray, phi: jnp.ndarray
 ) -> jnp.ndarray:
     """Single doc x modality log-likelihood / N (src/MMCTM.jl:384-401)."""
-    return jnp.sum(safe_xlogy(Xdm, props @ phi)) / jnp.sum(Xdm)
+    P = jnp.matmul(props, phi, precision=_HI)
+    return jnp.sum(safe_xlogy(Xdm, P)) / jnp.sum(Xdm)
 
 
 def docmodality_loglikelihoods(
@@ -469,7 +477,7 @@ def docmodality_loglikelihoods(
     `modality_loglikelihoods` here)."""
     cols = []
     for m in range(len(X)):
-        P = props[m] @ phi[m]  # (D, V_m)
+        P = jnp.matmul(props[m], phi[m], precision=_HI)  # (D, V_m)
         cols.append(jnp.sum(safe_xlogy(X[m], P), axis=1) / jnp.sum(X[m], axis=1))
     return jnp.stack(cols, axis=1)
 
@@ -683,10 +691,12 @@ def predict_modality_eta_states(
         obs_state, obs_config, maxiter, tol, step, verbose
     )
     converged = carry_converged(ll_buf, n_iters, done)
-    eta = (
-        trained.mu[unobs][None, :]
-        + (obs_state.lam - trained.mu[obs][None, :])
-        @ (trained.Sigma[np.ix_(unobs, obs)] @ trained.invSigma[np.ix_(obs, obs)]).T
+    gain = jnp.matmul(
+        trained.Sigma[np.ix_(unobs, obs)], trained.invSigma[np.ix_(obs, obs)],
+        precision=_HI,
+    )
+    eta = trained.mu[unobs][None, :] + jnp.matmul(
+        obs_state.lam - trained.mu[obs][None, :], gain.T, precision=_HI
     )
     return eta, obs_state, converged
 

@@ -1,29 +1,31 @@
-"""Pallas TPU kernel: the entire batched λ Newton solve fused in VMEM.
+"""The batched λ Newton solve fused into one GPU kernel (Pallas through Triton).
 
 The λ maximization (replacing NLopt LD_MMA, src/MMCTM.jl:127-143) is the hot
-op of MMCTM fitting: ~25 damped-Newton iterations per document per CAVI
-iteration, each built from dozens of small ops on (B, MK) tensors. As an XLA
-op graph every op round-trips HBM and pays dispatch latency; fused in a
-Pallas kernel the whole solve runs out of VMEM — per document tile, inputs
-are read from HBM exactly once and the result written once.
+op of the CTM fits: a few line-searched Newton steps per document per CAVI
+iteration, each solving its Newton system by Jacobi-PCG. As an XLA op graph
+every step of that chain is its own small kernel inside the CAVI while_loop.
+Here the whole chain runs in one kernel: each program reads its documents'
+λ, ν, N/ζ and sumθ once, keeps every Newton, PCG and line-search temporary
+in registers, and writes λ back once.
 
-Layout (the part that matters on TPU): documents ride the 128-wide lane
-axis and the MK topic axis pads only to the 8-sublane granule, i.e. blocks
-are (MK_pad, TILE_B). A (B, 128-padded-MK) layout was tried first and wasted
-9x the VPU work on dead lanes (MK ~ 14). Matvecs with the shared Σ⁻¹ are
-MK_pad unrolled full-tile FMAs on the VPU (full f32; an MXU dot was tried
-first and lost — bf16 single-pass precision AND 16→128 padding waste);
-reductions over topics are cross-sublane sums. Newton systems are solved by
-Jacobi-PCG, mirroring ops.solvers._cg_solve.
+Layout: documents are rows and topics are columns, padded to a power of two
+of at least 16 (MK=14 -> 16, MK=19 -> 32). The grid is (restart lanes,
+document tiles); a program loads its lane's Σ⁻¹ and μ once and solves one
+tile of documents.
+Nothing carries between programs. Padded topic columns are exact no-ops:
+identity rows in Σ⁻¹, ν=1, λ=μ=N/ζ=sumθ=0 give a zero gradient and a zero
+Newton step. Padded document rows are solved on harmless fill values and
+never stored.
 
-Line-search algebra (shared with ops.solvers.maximize_lambda): candidates
-λ + sδ need no extra matvecs (the quadratic form expands in s) and no extra
-exponentials (exp(sδ) for the halving/doubling scale ladder is a
-squaring/sqrt chain of one exp(δ)); each Newton iteration computes exactly
-two exponentials.
+Matvecs with Σ⁻¹ are `pl.dot` at Precision.HIGHEST, which Triton lowers
+with inputPrecision = ieee: exact float32 on the FMA units, no TF32
+rounding of the ill-conditioned Σ⁻¹. (A broadcast-multiply-reduce matvec
+lost TF32-level accuracy on an H100 — 2e-3 against 7e-7 for this form —
+consistent with Triton's combiner rewriting it into a default-precision
+dot.)
 
-Padded topic rows are exact no-ops: identity rows in Σ⁻¹, zero Ndivζ/sumθ,
-ν=1, λ=μ=0 ⇒ zero gradient ⇒ zero Newton step.
+The algorithm mirrors ops.solvers.maximize_lambda op for op (its constants
+are imported from there), so the two agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -32,101 +34,108 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..solvers import (
     CG_ITER_F32_CAP,
+    LAMBDA_POLISH_ITERS,
     _N_BACKTRACK,
     _POLISH_MAX_STEP,
-    LAMBDA_POLISH_ITERS,
 )
 
-__all__ = [
-    "maximize_lambda_fused",
-    "maximize_lambda_fused_restarts",
-    "PALLAS_MAX_MK",
-]
+__all__ = ["maximize_lambda_fused", "FUSED_MAX_MK", "padded_topics", "launch_config"]
 
-PALLAS_MAX_MK = 128
-
-# Tuning constants (scale ladder, polish count, trust region) are imported
-# from ops.solvers so the fused kernel and the XLA path cannot drift.
-_N_POLISH = LAMBDA_POLISH_ITERS
+# Largest MK the kernel takes: every Newton and PCG temporary of a tile
+# lives in registers, and 32 padded topic columns is the widest measured.
+FUSED_MAX_MK = 32
 
 
-def _lambda_solve(lam, nu, ndz, st, mu_col, invS, *, n_iter: int, cg_iter: int,
-                  n_polish: int = _N_POLISH):
-    """Value-level fused Newton solve on (MKP, TB) blocks (see module docs)."""
-    MKP = lam.shape[0]
+def padded_topics(MK: int) -> int:
+    """Topic columns padded to a power of two, at least 16 (tl.dot's
+    smallest operand dimension)."""
+    return max(16, pl.next_power_of_2(MK))
+
+
+def launch_config(MK: int) -> tuple[int, int]:
+    """(documents per program, warps) for a topic width, from the tile and
+    warp sweep at BRCA (MK=14) and PCAWG (MK=19) widths on an H100
+    (tools/lambda_sweep.py)."""
+    return (64, 4) if padded_topics(MK) <= 16 else (32, 4)
+
+
+def _lambda_kernel(lam_ref, nu_ref, ndz_ref, st_ref, mu_ref, invS_ref, out_ref,
+                   *, D: int, MK: int, MKP: int, tile: int, n_iter: int,
+                   cg_iter: int, n_polish: int):
+    r = pl.program_id(0)
+    rows = pl.program_id(1) * tile + jnp.arange(tile)
+    cols = jnp.arange(MKP)
+    col_ok = cols < MK
+    mask = (rows < D)[:, None] & col_ok[None, :]
+    at = (r, rows[:, None], cols[None, :])
+
+    def load(ref, fill):
+        return plgpu.load(ref.at[at], mask=mask, other=fill)
+
+    lam = load(lam_ref, 0.0)
+    nu = load(nu_ref, 1.0)
+    ndz = load(ndz_ref, 0.0)
+    st = load(st_ref, 0.0)
+    mu = plgpu.load(mu_ref.at[r, cols], mask=col_ok, other=0.0)[None, :]
+    S = plgpu.load(
+        invS_ref.at[r, cols[:, None], cols[None, :]],
+        mask=col_ok[:, None] & col_ok[None, :], other=0.0,
+    )
+    diag = cols[:, None] == cols[None, :]
+    S = jnp.where(diag & ~col_ok[:, None], 1.0, S)  # identity on padded rows
+    diagS = jnp.sum(jnp.where(diag, S, 0.0), axis=0)[None, :]
 
     def matS(v):
-        # out[j, :] = Σ_i invS[j, i]·v[i, :], unrolled as MKP full-tile FMAs
-        # on the VPU: full f32 (the MXU's default f32 matmul is a single
-        # bf16 pass — unacceptable against the ill-conditioned Σ⁻¹, see
-        # ops/solvers.py) and no 16→128 MXU padding waste.
-        out = invS[:, 0:1] * v[0:1, :]
-        for i in range(1, MKP):
-            out = out + invS[:, i : i + 1] * v[i : i + 1, :]
-        return out
+        # out[b, j] = Σ_i v[b, i]·S[i, j]; Σ⁻¹ is symmetric
+        return pl.dot(v, S, precision=jax.lax.Precision.HIGHEST)
 
     def rowsum(x):
-        return jnp.sum(x, axis=0, keepdims=True)  # (1, TB)
-
-    diagS = jnp.diagonal(invS)[:, None]  # (MKP, 1)
+        return jnp.sum(x, axis=1)[:, None]
 
     def cg(w, g):
-        # Jacobi-PCG for (Σ⁻¹ + diag(w)) δ = g — same algorithm and rationale
-        # as ops.solvers._cg_solve (plain CG loses Krylov exactness to
-        # roundoff on these systems; PCG is machine-exact at MK iterations).
+        # Jacobi-PCG for (Σ⁻¹ + diag(w)) δ = g, as ops.solvers._cg_solve
         M = diagS + w
-        x = jnp.zeros_like(g)
-        r = g
-        z = r / M
-        p = z
-        rz = rowsum(r * z)
+        z = g / M
 
         def body(_, carry):
-            x, r, z, p, rz = carry
+            x, r_, z, p, rz = carry
             Ap = matS(p) + w * p
             alpha = rz / (rowsum(p * Ap) + 1e-30)
             x = x + alpha * p
-            r = r - alpha * Ap
-            z = r / M
-            rz_new = rowsum(r * z)
-            beta = rz_new / (rz + 1e-30)
-            p = z + beta * p
-            return x, r, z, p, rz_new
+            r_ = r_ - alpha * Ap
+            z = r_ / M
+            rz_new = rowsum(r_ * z)
+            p = z + (rz_new / (rz + 1e-30)) * p
+            return x, r_, z, p, rz_new
 
-        x, *_ = jax.lax.fori_loop(0, cg_iter, body, (x, r, z, p, rz))
-        return x
+        init = (jnp.zeros_like(g), g, z, z, rowsum(g * z))
+        return jax.lax.fori_loop(0, cg_iter, body, init)[0]
 
     def newton(_, lam):
-        Eeta = jnp.exp(lam + 0.5 * nu)
-        w = ndz * Eeta
-        diff = lam - mu_col
+        w = ndz * jnp.exp(lam + 0.5 * nu)
+        diff = lam - mu
         Sdiff = matS(diff)
-        g = -Sdiff + st - w
-        delta = cg(w, g)
-
+        delta = cg(w, -Sdiff + st - w)
         Sdelta = matS(delta)
         q0 = rowsum(diff * Sdiff)
         b = rowsum(delta * Sdiff)
         c2 = rowsum(delta * Sdelta)
         lin0 = rowsum(lam * st)
         lind = rowsum(delta * st)
-        f0 = -0.5 * q0 + lin0 - rowsum(w)  # s = 0 fallback
 
-        # exp(s*delta): over-steps get individually clipped exps; the
-        # backtracking steps form an exact sqrt chain (see ops/solvers.py
-        # for the float32-overflow / 0*inf rationale)
+        # candidate steps as in ops.solvers.maximize_lambda: clipped exps for
+        # the over-steps, an exact sqrt chain for the backtracking ladder
         def f_of(s, e_s):
             quad = -0.5 * (q0 + 2.0 * s * b + s * s * c2)
             return quad + lin0 + s * lind - rowsum(w * e_s)
 
-        best_s = jnp.zeros_like(f0)
-        best_f = f0
+        best_f = -0.5 * q0 + lin0 - rowsum(w)
+        best_s = jnp.zeros_like(best_f)
         for s in (8.0, 4.0, 2.0):
             f = f_of(s, jnp.exp(jnp.minimum(s * delta, 60.0)))
             ok = jnp.isfinite(f) & (f > best_f)
@@ -141,184 +150,63 @@ def _lambda_solve(lam, nu, ndz, st, mu_col, invS, *, n_iter: int, cg_iter: int,
             best_s = jnp.where(ok, s, best_s)
             e_s = jnp.sqrt(e_s)
             s = s / 2.0
-
         return lam + best_s * delta
 
     def polish(_, lam):
         w = ndz * jnp.exp(lam + 0.5 * nu)
-        g = -matS(lam - mu_col) + st - w
-        delta = cg(w, g)
-        # trust region, matching ops.solvers (scale, never re-direct)
-        dmax = jnp.max(jnp.abs(delta), axis=0, keepdims=True)
+        delta = cg(w, -matS(lam - mu) + st - w)
+        dmax = jnp.max(jnp.abs(delta), axis=1)[:, None]
         delta = delta * jnp.minimum(1.0, _POLISH_MAX_STEP / jnp.maximum(dmax, 1e-30))
         step = lam + delta
         ok = rowsum(jnp.where(jnp.isfinite(step), 0.0, 1.0)) == 0.0
         return jnp.where(ok, step, lam)
 
     lam = jax.lax.fori_loop(0, n_iter, newton, lam)
-    return jax.lax.fori_loop(0, n_polish, polish, lam)
-
-
-def _pad_transposed(x, width, Bp, fill=0.0):
-    """(B, W) -> transposed (width, Bp) float32 block, padded with `fill`."""
-    B, W = x.shape
-    return jnp.pad(
-        x.astype(jnp.float32).T, ((0, width - W), (0, Bp - B)),
-        constant_values=fill,
-    )
-
-
-def _shared_blocks(mu, invSigma, MK, MKP):
-    """The μ column block and identity-padded Σ⁻¹ block every wrapper needs:
-    padded topic rows see an identity row (inert Newton coordinates)."""
-    dt = jnp.float32
-    mu_p = jnp.zeros((MKP, 128), dt).at[:MK, 0].set(mu.astype(dt))
-    eye_pad = jnp.eye(MKP, dtype=dt).at[:MK, :MK].set(0.0)
-    invS_p = jnp.zeros((MKP, MKP), dt).at[:MK, :MK].set(invSigma.astype(dt)) + eye_pad
-    return mu_p, invS_p
-
-
-def _lambda_kernel(lam_ref, nu_ref, ndz_ref, st_ref, mu_ref, invS_ref, out_ref,
-                   *, n_iter: int, cg_iter: int, n_polish: int):
-    out_ref[:] = _lambda_solve(
-        lam_ref[:], nu_ref[:], ndz_ref[:], st_ref[:],
-        mu_ref[:][:, 0:1], invS_ref[:], n_iter=n_iter, cg_iter=cg_iter,
-        n_polish=n_polish,
-    )
-
-
-def _lambda_kernel_r(lam_ref, nu_ref, ndz_ref, st_ref, mu_ref, invS_ref,
-                     out_ref, *, n_iter: int, cg_iter: int, n_polish: int):
-    """Restart-batched variant: blocks carry a leading singleton restart dim."""
-    out_ref[0] = _lambda_solve(
-        lam_ref[0], nu_ref[0], ndz_ref[0], st_ref[0],
-        mu_ref[0][:, 0:1], invS_ref[0], n_iter=n_iter, cg_iter=cg_iter,
-        n_polish=n_polish,
-    )
+    lam = jax.lax.fori_loop(0, n_polish, polish, lam)
+    plgpu.store(out_ref.at[at], lam, mask=mask)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n_iter", "cg_iter", "polish_iter", "tile_b", "interpret"),
+    static_argnames=("n_iter", "cg_iter", "polish_iter", "launch", "interpret"),
 )
 def maximize_lambda_fused(
     lam0, nu, Ndivzeta, sumtheta, mu, invSigma,
     n_iter: int = 7, cg_iter: int = None, polish_iter: int = None,
-    tile_b: int = 2048, interpret: bool = False,
+    launch: tuple[int, int] | None = None, interpret: bool = False,
 ):
-    """Drop-in fused equivalent of ops.solvers.maximize_lambda.
+    """Fused equivalent of ops.solvers.maximize_lambda, in float32.
 
-    lam0/nu/Ndivzeta/sumtheta: (B, MK); mu: (MK,); invSigma: (MK, MK).
-    Requires MK <= 128.
+    Single lane: lam0/nu/Ndivzeta/sumtheta (D, MK), mu (MK,), invSigma
+    (MK, MK). Restart-batched: (R, D, MK), (R, MK), (R, MK, MK), each lane
+    with its own Gaussian. Under vmap the single-lane call gains the lane
+    axis of the grid. Requires MK <= FUSED_MAX_MK. `launch` overrides
+    `launch_config(MK)` (documents per program, warps) for the sweep.
     """
-    B, MK = lam0.shape
-    if MK > PALLAS_MAX_MK:
-        raise ValueError(f"MK={MK} exceeds the fused kernel's lane budget {PALLAS_MAX_MK}")
-    if cg_iter is None:
-        cg_iter = min(MK, CG_ITER_F32_CAP)  # f32 kernel: see solvers.maximize_lambda
-    if polish_iter is None:
-        polish_iter = _N_POLISH
-    dt = jnp.float32
-    MKP = max(8, ((MK + 7) // 8) * 8)
-    # Never let the tile exceed the (128-rounded) batch: under vmap this is
-    # called with B = D per restart lane (560 on BRCA), and a fixed 2048 tile
-    # would pad every lane 3.7x (measured 2.7x end-to-end slowdown).
-    tile_b = min(tile_b, ((B + 127) // 128) * 128)
-    Bp = ((B + tile_b - 1) // tile_b) * tile_b
-
-    lam_p = _pad_transposed(lam0, MKP, Bp)
-    nu_p = _pad_transposed(nu, MKP, Bp, fill=1.0)
-    ndz_p = _pad_transposed(Ndivzeta, MKP, Bp)
-    st_p = _pad_transposed(sumtheta, MKP, Bp)
-    mu_p, invS_p = _shared_blocks(mu, invSigma, MK, MKP)
-
-    grid = (Bp // tile_b,)
-    out = pl.pallas_call(
-        functools.partial(_lambda_kernel, n_iter=n_iter, cg_iter=cg_iter,
-                          n_polish=polish_iter),
-        out_shape=jax.ShapeDtypeStruct((MKP, Bp), dt),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((MKP, tile_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((MKP, tile_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((MKP, tile_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((MKP, tile_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((MKP, 128), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((MKP, MKP), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((MKP, tile_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Bp * MKP * MKP * (n_iter + polish_iter) * (cg_iter + 3),
-            bytes_accessed=5 * Bp * MKP * 4,
-            transcendentals=2 * Bp * MKP * (n_iter + polish_iter),
-        ),
-        interpret=interpret,
-    )(lam_p, nu_p, ndz_p, st_p, mu_p, invS_p)
-    return out[:MK, :B].T.astype(lam0.dtype)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_iter", "cg_iter", "polish_iter", "tile_b", "interpret"),
-)
-def maximize_lambda_fused_restarts(
-    lam0, nu, Ndivzeta, sumtheta, mu, invSigma,
-    n_iter: int = 7, cg_iter: int = None, polish_iter: int = None,
-    tile_b: int = 2048, interpret: bool = False,
-):
-    """Restart-batched fused λ solve: lam0/nu/Ndivzeta/sumtheta are
-    (R, D, MK); mu is (R, MK); invSigma is (R, MK, MK) — each restart lane
-    has its own Gaussian. Grid is (R, doc-tiles); per-lane μ/Σ⁻¹ blocks are
-    indexed by the restart grid coordinate (the plain fused kernel cannot be
-    vmapped efficiently over restarts because its Σ⁻¹ block is shared)."""
-    R, D, MK = lam0.shape
-    if MK > PALLAS_MAX_MK:
-        raise ValueError(f"MK={MK} exceeds the fused kernel's lane budget {PALLAS_MAX_MK}")
-    if cg_iter is None:
-        cg_iter = min(MK, CG_ITER_F32_CAP)  # f32 kernel: see solvers.maximize_lambda
-    if polish_iter is None:
-        polish_iter = _N_POLISH
-    dt = jnp.float32
-    MKP = max(8, ((MK + 7) // 8) * 8)
-    tile_b = min(tile_b, ((D + 127) // 128) * 128)
-    Dp = ((D + tile_b - 1) // tile_b) * tile_b
-
-    def pad_t(x, fill=0.0):
-        # (R, D, MK) -> (R, MKP, Dp)
-        return jnp.pad(
-            jnp.swapaxes(x.astype(dt), 1, 2),
-            ((0, 0), (0, MKP - MK), (0, Dp - D)),
-            constant_values=fill,
+    single = lam0.ndim == 2
+    if single:
+        lam0, nu, Ndivzeta, sumtheta, mu, invSigma = (
+            x[None] for x in (lam0, nu, Ndivzeta, sumtheta, mu, invSigma)
         )
-
-    lam_p = pad_t(lam0)
-    nu_p = pad_t(nu, fill=1.0)
-    ndz_p = pad_t(Ndivzeta)
-    st_p = pad_t(sumtheta)
-    mu_p = jnp.zeros((R, MKP, 128), dt).at[:, :MK, 0].set(mu.astype(dt))
-    eye_pad = jnp.eye(MKP, dtype=dt).at[:MK, :MK].set(0.0)
-    invS_p = (
-        jnp.zeros((R, MKP, MKP), dt).at[:, :MK, :MK].set(invSigma.astype(dt))
-        + eye_pad[None]
-    )
-
-    grid = (R, Dp // tile_b)
+    R, D, MK = lam0.shape
+    if MK > FUSED_MAX_MK:
+        raise ValueError(f"MK={MK} exceeds the fused kernel's limit {FUSED_MAX_MK}")
+    if cg_iter is None:
+        cg_iter = min(MK, CG_ITER_F32_CAP)
+    if polish_iter is None:
+        polish_iter = LAMBDA_POLISH_ITERS
+    tile, num_warps = launch or launch_config(MK)
+    f32 = jnp.float32
     out = pl.pallas_call(
-        functools.partial(_lambda_kernel_r, n_iter=n_iter, cg_iter=cg_iter,
-                          n_polish=polish_iter),
-        out_shape=jax.ShapeDtypeStruct((R, MKP, Dp), dt),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, MKP, tile_b), lambda r, i: (r, 0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, MKP, tile_b), lambda r, i: (r, 0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, MKP, tile_b), lambda r, i: (r, 0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, MKP, tile_b), lambda r, i: (r, 0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, MKP, 128), lambda r, i: (r, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, MKP, MKP), lambda r, i: (r, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, MKP, tile_b), lambda r, i: (r, 0, i), memory_space=pltpu.VMEM
+        functools.partial(
+            _lambda_kernel, D=D, MK=MK, MKP=padded_topics(MK), tile=tile,
+            n_iter=n_iter, cg_iter=cg_iter, n_polish=polish_iter,
         ),
+        out_shape=jax.ShapeDtypeStruct((R, D, MK), f32),
+        grid=(R, pl.cdiv(D, tile)),
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
         interpret=interpret,
-    )(lam_p, nu_p, ndz_p, st_p, mu_p, invS_p)
-    return jnp.swapaxes(out[:, :MK, :D], 1, 2).astype(lam0.dtype)
+        name="lambda_newton_pcg",
+    )(*(x.astype(f32) for x in (lam0, nu, Ndivzeta, sumtheta, mu, invSigma)))
+    out = out.astype(lam0.dtype)
+    return out[0] if single else out

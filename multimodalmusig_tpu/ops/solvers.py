@@ -12,10 +12,9 @@ Here each solve is a fixed-iteration batched method, written so that
 
   * every step is branch-free (candidate-step line search via a masked
     best-so-far scan instead of data-dependent halving loops) ->
-    vmap/jit/TPU friendly;
+    vmap/jit friendly;
   * λ solves batch over documents with the Newton systems solved by CG whose
-    matvec is one shared-matrix matmul (no per-document factorizations; on
-    TPU this beats batched small-matrix Cholesky by ~2 orders of magnitude),
+    matvec is one shared-matrix matmul (no per-document factorizations),
     and the line search needs only two exponentials per Newton iteration
     (exp(sδ) over the halving/doubling ladder is a squaring/sqrt chain);
   * ν solves exploit that the ν-objective is *fully separable per coordinate*
@@ -37,21 +36,20 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.special import digamma, gammaln, polygamma
 
-# All matvecs against the precision matrix Σ⁻¹ must run at full f32: the TPU
-# MXU's default f32 matmul is a single bf16 pass (~3e-3 relative error,
-# measured on-device), and Σ⁻¹ is routinely ill-conditioned here (Σ diagonals
-# reach ~5e-3 on the BRCA workload, cond ≳ 1e4), so bf16 CG directions can be
-# garbage with huge norms — one unguarded Newton step then overflows exp(λ).
+# All matvecs against the precision matrix Σ⁻¹ must run at full f32: a TF32
+# pass keeps 10 mantissa bits, and Σ⁻¹ is routinely ill-conditioned here (Σ
+# diagonals reach ~5e-3 on the BRCA workload, cond ≳ 1e4), so low-precision
+# CG directions can be garbage with huge norms — one unguarded Newton step
+# then overflows exp(λ).
 
 
 def _mv(v, S):
     """out[..., j] = Σ_i v[..., i]·S[i, j] at full f32 precision.
 
-    Computed as a broadcast-multiply-reduce rather than a dot: with MK ≈ 14
-    the MXU would pad both contraction dims 14→128 (~1% utilization) and the
-    f32-exact HIGHEST lowering pays that 6×, while the VPU does the same
-    contraction natively in f32 with perfect utilization. XLA fuses the
-    broadcast and reduction, so nothing (B, MK, MK)-shaped is materialized.
+    Computed as a broadcast-multiply-reduce rather than a dot, so no
+    matmul precision setting applies: the products and sums are plain f32
+    elementwise ops. XLA fuses the broadcast and reduction, so nothing
+    (B, MK, MK)-shaped is materialized.
     """
     return jnp.sum(v[..., :, None] * S, axis=-2)
 
@@ -63,64 +61,35 @@ _POLISH_MAX_STEP = 2.0
 
 # Polish rounds appended to the λ solve. 2 suffice: PCG directions are
 # machine-exact, so the unconditional Newton tail converges quadratically
-# from the line-searched basin (measured |g| ~ 1e-12 f64 —
-# tools/lambda_iters_experiment.py). The Pallas kernel imports this (and
+# from the line-searched basin (|g| ~ 1e-12 in f64 —
+# tools/lambda_iters_experiment.py). The fused kernel imports this (and
 # _N_BACKTRACK/_POLISH_MAX_STEP) so the two implementations cannot drift.
 LAMBDA_POLISH_ITERS = 2
 
-# maximize_nu's fixed-point sweep count (its n_iter default); the fused
-# E-step kernel imports this so the two implementations cannot drift.
+# maximize_nu's fixed-point sweep count (its n_iter default).
 NU_FP_ITERS = 8
 
 # Float32 cap on the λ solve's inner PCG iteration count (default
 # cg_iter = min(MK, cap); float64 keeps the exact cg_iter = MK). See
-# maximize_lambda's docstring for the measurements. The Pallas kernels
-# import this so the fused and XLA defaults cannot drift.
+# maximize_lambda's docstring. The fused kernel imports this so the fused
+# and XLA defaults cannot drift.
 CG_ITER_F32_CAP = 10
 
-# Newton budget for WARM-STARTED float32 λ solves inside the CAVI fit loops
-# (models/ctm_base.py solve_eta resolves this when the model config leaves
-# lambda_n_iter unset and dtype is float32; float64 fits and standalone
-# maximize_lambda calls keep the cold-start-safe n_iter = 7). Measured on
-# the v5e after the exp-factorized E-step (round 4, BENCH_LOCAL
-# lambda_budget_r4): each CAVI iteration warm-starts the solve at the
-# previous iteration's λ, so 3 line-searched Newton steps + the 2 polish
-# steps hold the outer-iteration distribution (median 128.5 → 136.5 on
-# BRCA R=100, 191 → 190.5 on PCAWG) and the per-modality best
-# log-likelihoods to the 6th decimal on BOTH workloads, while cutting the
-# benchmark walls 0.67 → 0.48 s (R=100) and 5.13 → 3.60 s (R=1000).
-# The cliff is sharp and measured: n_iter = 2 still matches BRCA exactly
-# (R=1000 3.07 s) but wiggles PCAWG's 3rd modality by 3e-5; n_iter = 1
-# degrades best ll by 2-4e-4 with MORE outer iterations (premature
-# ll-plateau convergence at worse optima). 3 keeps one step of margin
-# above the cliff; harder datasets can raise it via
-# CTMBaseConfig.lambda_n_iter without touching solver code.
+# Warm-start budgets for float32 λ/ν solves inside the CAVI fit loops
+# (models/ctm_base.py resolved_budgets applies them when the model config
+# leaves the fields unset and dtype is float32; float64 fits and standalone
+# solver calls keep the cold-start-safe full budgets). Each CAVI iteration
+# warm-starts the solves at the previous iteration's λ/ν, so far smaller
+# budgets hold the outer-iteration distribution and the best
+# log-likelihoods. The values were chosen at accuracy cliffs found on BRCA
+# and PCAWG with the population-quality method of tools/cg_budget_ab.py:
+# fewer Newton steps (2, 1) moved the best log-likelihoods, and the PCG
+# response is not monotone (cg=8 needed more outer iterations than cg=10).
+# They are hypotheses on a GPU until re-gated there; harder datasets can
+# raise them via the CTMBaseConfig fields without touching solver code.
 LAMBDA_NITER_F32_CAVI = 3
-
-# Companion warm-start budgets, probed the same way at the same operating
-# point (BENCH_LOCAL nu_polish_budget_r4): inside an f32 fit, ONE λ polish
-# round and FOUR ν fixed-point sweeps hold iteration counts and best-ll to
-# the 6th decimal on BRCA and PCAWG (PCAWG unchunked 8.32 → 5.24 s
-# combined with the Newton cap) — the second polish and sweeps 5-8 only
-# matter for cold starts, which fit loops never see after iteration 1.
-# float64 and standalone solver calls keep the full budgets.
 LAMBDA_POLISH_F32_CAVI = 1
 NU_FP_F32_CAVI = 4
-
-# PCG budget for the same warm-started f32 CAVI λ solves. Probed round 5 on
-# the v5e with population-level quality gates (tools/cg_budget_ab.py,
-# BENCH_LOCAL cg_budget_r5): at cg_iter=4 the per-lane final-ll populations
-# are statistically indistinguishable from cg=10 on BRCA R=1000 (means
-# within ~1 sem, slightly better; 1000/1000 finite) and PCAWG R=100 (means
-# within a fraction of a sem), best-of-N values jitter ±1e-4 in BOTH
-# directions (equal-quality local optima, not degradation), the
-# iteration-count tails SHORTEN (BRCA max 442 → 384), and round 3's
-# ill-conditioned stationarity fuzz already held at cg=4 (cond 1e6,
-# tools/pcg_experiment.py). Walls: BRCA R=1000 6.98 → 4.85 s, PCAWG R=100
-# 7.81 → 4.66 s. Intermediate budgets are NOT monotone — cg=8 is SLOWER
-# than cg=10 (looser directions shift trajectories to longer outer paths)
-# — so only the probed 4 is pinned. Cold starts, standalone solves, and
-# f64 keep min(MK, CG_ITER_F32_CAP) / exact MK.
 CG_F32_CAVI = 4
 
 __all__ = [
@@ -146,9 +115,8 @@ ALPHA_LOWER_BOUND = 1e-7
 # 1/2..2^-12, and 0 (reject). argmax over candidates keeps ascent monotone.
 _N_BACKTRACK = 13
 
-# Trace-time default for `_loop`'s unroll when the caller passes None; tools
-# (pallas_fit_ab.py arm2, unroll_ab.py) flip it pre-trace in a subprocess to
-# reproduce the measurement below. Not a user knob.
+# Trace-time default for `_loop`'s unroll when the caller passes None;
+# tools/unroll_ab.py flips it pre-trace in a subprocess. Not a user knob.
 _UNROLL_DEFAULT = False
 
 
@@ -159,14 +127,8 @@ def _loop(n, body, init, unroll):
     same ops in the same order, so results are bit-identical to the While
     lowering (measured, tools/unroll_ab.py); only scheduling/fusion differ.
 
-    Default is the While lowering: the "While carries round-trip HBM, so
-    unrolling the tiny f32 budgets (Newton 3 × CG 4) must win" hypothesis
-    was measured FALSE on the v5e — the fully-unrolled solve makes the
-    100-restart BRCA fit 1.6× SLOWER (0.57 s vs 0.36 s, tools/
-    pallas_fit_ab.py arm0-vs-arm2, round 5): inside the outer CAVI
-    while_loop XLA schedules the compact While bodies better than one
-    straight-line graph ~16× their size. The switch stays for
-    reproducibility of that measurement and for future backends."""
+    Default is the While lowering; tools/unroll_ab.py A/Bs the unrolled
+    form of the small f32 budgets (Newton 3 × CG 4) against it."""
     if unroll is None:
         unroll = _UNROLL_DEFAULT
     if unroll:
@@ -200,7 +162,7 @@ def lambda_objective(lam, nu, Ndivzeta, sumtheta, mu, invSigma):
     """-½(λ-μ)ᵀΣ⁻¹(λ-μ) + λ·sumθ - Σ Ndivζ·exp(λ+ν/2). Single document."""
     diff = lam - mu
     Eeta = jnp.exp(lam + 0.5 * nu)
-    quad = -0.5 * diff @ _mv(diff, invSigma)  # Σ⁻¹ symmetric
+    quad = -0.5 * jnp.sum(diff * _mv(diff, invSigma))  # Σ⁻¹ symmetric
     return quad + jnp.sum(lam * sumtheta) - jnp.sum(Ndivzeta * Eeta)
 
 
@@ -221,9 +183,8 @@ def _batched_lambda_objective(lam, nu, Ndivzeta, sumtheta, mu, invSigma):
 def _cg_solve(w, g, invSigma, n_iter, unroll=None):
     """Batched Jacobi-preconditioned CG for (Σ⁻¹ + diag(w)) δ = g over (B, MK)
     without ever materializing the (B, MK, MK) Hessians: each matvec is one
-    shared-matrix contraction plus an elementwise product. On TPU this beats
-    batched small-matrix Cholesky by ~2 orders of magnitude (the XLA
-    small-Cholesky lowering is latency-bound).
+    shared-matrix contraction plus an elementwise product (the XLA
+    small-Cholesky lowering is a latency-bound loop).
 
     The Jacobi preconditioner M = diag(Σ⁻¹) + w costs one elementwise divide
     per iteration and is decisive in float arithmetic: measured on real
@@ -273,34 +234,20 @@ def _chol_solve(w, g, invSigma):
     Cholesky factorization and two unrolled triangular substitutions.
 
     The structural alternative to `_cg_solve`: instead of cg_iter sequential
-    Krylov iterations (each a shared-matrix matvec + reductions over MK —
-    the dependency chain NOTES.md round 5 measured as the iteration's
-    binding constraint), this emits one static elementwise DAG over the
-    document batch: every L entry / substitution step is a (B,)-vectorized
-    FMA, there are no reductions over MK at all, and the only inputs that
-    vary per document are w and g (Σ⁻¹ is shared), so XLA fuses the whole
-    solve into a handful of elementwise kernels. Same unrolled-schedule
-    rationale as models/ctm_base.py `_spd_inverse_unrolled` (which beats
-    XLA's batched cho_solve ~8% off the whole CAVI iteration at MK ≤ 20);
-    here the batch is documents (per lane), not lanes. FLOPs per document
-    are ~n³/6 + 2n² multiplies — comparable to PCG at cg_iter = 4 for
-    n = 14 — but the direction is machine-exact (backward-stable Cholesky)
-    rather than a 4-iteration Krylov truncation.
+    Krylov iterations (each a shared-matrix matvec + reductions over MK),
+    this emits one static elementwise DAG over the document batch: every L
+    entry / substitution step is a (B,)-vectorized FMA, there are no
+    reductions over MK at all, and the only inputs that vary per document
+    are w and g (Σ⁻¹ is shared). FLOPs per document are ~n³/6 + 2n²
+    multiplies — comparable to PCG at cg_iter = 4 for n = 14 — but the
+    direction is machine-exact (backward-stable Cholesky) rather than a
+    4-iteration Krylov truncation.
 
     Like the unrolled Σ⁻¹, this traces O(n³/6) ops per solve, so callers
     should keep it to mutation-signature-sized MK (the fit loops run it 4×
-    per CAVI iteration); larger problems keep PCG.
-
-    MEASURED AND NOT DEFAULT (v5e, tools/chol_ab.py, BENCH_LOCAL
-    chol_ab_r5): at fit level this loses 5.3× to PCG (1.92 s vs 0.36 s on
-    the 100-restart BRCA fit) with equal-quality optima — the same failure
-    mode as the round-5 full-unroll A/B: inside the outer CAVI while_loop,
-    XLA schedules the compact PCG While bodies better than the ~570-op
-    straight-line DAG this traces 4× per iteration (the M-step's unrolled
-    Σ⁻¹ wins because it runs ONCE per iteration over the small lane batch,
-    where dispatch latency, not scheduling, was the bar). Kept opt-in via
-    CTMBaseConfig.lambda_solver = "chol" for machine-exact directions on
-    harsher-than-BRCA conditioning and for future backends.
+    per CAVI iteration); larger problems keep PCG. Opt-in via
+    CTMBaseConfig.lambda_solver = "chol"; tools/chol_ab.py A/Bs it against
+    PCG at fit level.
     """
     n = g.shape[-1]
     idx = jnp.arange(n)
@@ -345,24 +292,23 @@ def maximize_lambda(
     by batched CG — see _cg_solve) is always an ascent direction, and the
     candidate-step argmax keeps every document's iterate monotone.
 
-    n_iter = 7 is measured, not guessed: with Jacobi-PCG inner solves
+    n_iter = 7 comes from a probe, not a guess: with Jacobi-PCG inner solves
     (machine-exact at cg_iter = MK — see _cg_solve) every probed solve of a
     30-outer-iteration BRCA-EU fit (float64, cold and warm starts,
     tools/lambda_iters_experiment.py) agrees with n_iter = 20 to <= 2e-14
     already at n_iter = 6; the 8/4/2 over-step ladder covers the cold start,
     and the 7th iteration buys the far-field margin the extreme-start test
     (λ0 = 30) needs. Each Newton iteration
-    costs cg_iter CG matvecs — the dominant VPU FLOPs of the whole CAVI
+    costs cg_iter CG matvecs — the dominant FLOPs of the whole CAVI
     iteration at benchmark batch sizes — so the budget matters.
 
     cg_iter default (None): MK in float64 (exact Krylov termination,
     required by the machine-precision trajectory-parity tests), but
     CG_ITER_F32_CAP-capped in float32, where f32 arithmetic floors the PCG
-    residual around 1e-6 by ~10 iterations and further ones buy nothing.
-    Measured (round 3, v5e): min(MK, 10) cuts the BRCA R=100 fit 1.10 s →
-    0.90 s and the PCAWG fit 17.5 s → 12.1 s with identical outer-iteration
-    counts and best log-likelihoods, and holds the fuzz stationarity bound
-    at cond(Σ⁻¹) = 1e6 as tightly as the full budget (tests/test_solvers.py
+    residual around 1e-6 by ~10 iterations and further ones buy nothing:
+    min(MK, 10) keeps identical outer-iteration counts and best
+    log-likelihoods, and holds the fuzz stationarity bound at cond(Σ⁻¹) =
+    1e6 as tightly as the full budget (tests/test_solvers.py
     TestIllConditionedRobustness). Override per call or per model via
     CTMBaseConfig.lambda_cg_iter.
     """
@@ -380,8 +326,8 @@ def maximize_lambda(
     # NOTE: a batch-max-gradient early exit was tried here and removed — under
     # vmap (100 restarts x 560 docs) the while_loop condition lifts to
     # "any lane unconverged", so no iterations are saved, and the looser
-    # intermediate solves cost extra outer CAVI iterations (measured: 50.5s
-    # vs 29.9s for the 100-restart BRCA benchmark). Fixed-count fori_loop it is.
+    # intermediate solves cost extra outer CAVI iterations. Fixed-count
+    # fori_loop it is.
     #
     # Line-search algebra: for a candidate λ + sδ,
     #   quad(s)  = -½(q0 + 2s·b + s²·c2)      from two matvecs (Sδ, Sdiff)

@@ -1,9 +1,9 @@
 """Special-function kernels shared by all variational updates.
 
-TPU-native re-implementation of the reference's shared math substrate
+Batched re-implementation of the reference's shared math substrate
 (reference: src/common.jl:1-9 `logmvbeta`; src/LDA.jl:78-80,96-98 and
 src/MMCTM.jl:214-222 Dirichlet digamma expectations). Everything here is
-batched, jit-safe and dtype-polymorphic (float32 fast path on TPU,
+batched, jit-safe and dtype-polymorphic (float32 fast path on the GPU,
 float64 for parity tests against the Julia reference).
 """
 

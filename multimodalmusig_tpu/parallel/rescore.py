@@ -1,19 +1,18 @@
 """Float64 host re-scoring of restart-lane log-likelihoods for selection.
 
-Why this exists (round-4 VERDICT weak #1): TPU fits run in float32 and the
-per-iteration ll metric is computed INSIDE each fit executable. Different
-executables — the unchunked single-dispatch fit, each compaction-phase
-program, the Pallas-kernel arm — round differently, and hundreds of CAVI
-iterations amplify that: on BRCA the cross-executable drift of the final
-f32 ll reaches ~1e-2 while best-of-N winner margins sit at ~2e-5, so WHICH
-restart won depended on which executables happened to run. The reference's
-selection (run_mmctm.jl:86-97, 136-147) is deterministic because it runs in
-f64 on CPU.
+Why this exists: accelerator fits run in float32 and the per-iteration ll
+metric is computed INSIDE each fit executable. Different executables — the
+unchunked single-dispatch fit, each compaction-phase program, the fused-
+kernel arm — round differently, and hundreds of CAVI iterations amplify
+that: on BRCA the cross-executable drift of the final f32 ll can exceed the
+best-of-N winner margins, so WHICH restart won would depend on which
+executables happened to run. The reference's selection (run_mmctm.jl:86-97,
+136-147) is deterministic because it runs in f64 on CPU.
 
 The fix: selection never reads the in-fit f32 ll. Every candidate lane's
-final per-modality log-likelihood is re-scored on the host in float64 from
-the final variational state — the exact same formula the models define
-(e.g. mmctm.modality_loglikelihoods, src/MMCTM.jl:384-448), evaluated once,
+final per-modality log-likelihood is re-scored in float64 from the final
+variational state — the exact same formula the models define (e.g.
+mmctm.modality_loglikelihoods, src/MMCTM.jl:384-448), evaluated once,
 deterministically, by one code path regardless of which executables
 produced the states. The f32-vs-f64 discrepancy for the SAME state is pure
 scoring rounding (~1e-5 absolute on BRCA — reductions over ~5e4 cells), so
@@ -23,11 +22,10 @@ rescore everything.
 
 What this does and does not guarantee: the selection metric becomes a
 deterministic function of the final states alone (scoring noise gone). The
-states themselves can still drift across executables (~1e-3 on a few lanes'
-ll after hundreds of f32 iterations — NOTES.md round 3); a pick can only
-flip when two lanes' true quality gap is inside that state drift, i.e. a
-genuine near-tie where either model is defensible. tools/selection_stability.py
-quantifies both effects separately.
+states themselves can still drift across executables after hundreds of f32
+iterations; a pick can only flip when two lanes' true quality gap is inside
+that state drift, i.e. a genuine near-tie where either model is defensible.
+tools/selection_stability.py quantifies both effects separately.
 """
 
 from __future__ import annotations
@@ -267,13 +265,11 @@ def pick_optimal_restart_np(ll: np.ndarray) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Executor dispatch: identical f64 scores, run where they're cheapest.
+# Executor dispatch: identical f64 scores, run where the states live.
 # States arrive device-resident from the fits; the host path (above) fetches
 # them and scores on the CPU, the device path (parallel/rescore_device.py)
-# scores them in emulated f64 where they already live and fetches only the
-# (n, M) score matrix — measured ~2 s faster per best-of-1000 BRCA selection
-# on the remote-TPU setup (35 MB fetch + ~79M single-core host logs avoided).
-# The two agree to f64 reduction-order roundoff (~1e-13,
+# scores them in native f64 on the accelerator and fetches only the (n, M)
+# score matrix. The two agree to f64 reduction-order roundoff (~1e-13,
 # tests/test_rescore_device.py), five orders below the winner margins.
 # ---------------------------------------------------------------------------
 
@@ -283,45 +279,17 @@ def _use_device_rescore() -> bool:
 
     if flags.DEVICE_RESCORE in ("0", "1"):
         return flags.DEVICE_RESCORE == "1"
-    try:
-        import jax
+    import jax
 
-        return jax.default_backend() != "cpu"
-    except Exception:
-        return False
-
-
-_DEVICE_RESCORE_FAILED = False
+    return jax.default_backend() != "cpu"
 
 
 def _dispatch(device_call, host_call):
-    """Run the device scorer thunk when enabled, falling back to the host
-    thunk (once per process, with a warning) if the device module fails to
-    import or the backend rejects emulated f64. The import happens INSIDE
-    the guarded call so a broken jax install degrades to the pure-numpy
-    host path instead of crashing selection. When MUSIG_DEVICE_RESCORE=1
-    explicitly forces the device path, failures propagate — a forced
-    executor silently falling back would reinstate the multi-second host
-    overhead the flag exists to rule out. NOTE the guard cannot tell a
-    backend limitation from a caller bug (bad shapes raise here too); the
-    host re-run then raises the caller's actual error."""
-    global _DEVICE_RESCORE_FAILED
-    if _use_device_rescore() and not _DEVICE_RESCORE_FAILED:
-        from ..ops import flags
-
-        forced = flags.DEVICE_RESCORE == "1"
-        try:
-            return device_call()
-        except Exception as e:  # pragma: no cover - backend-dependent
-            if forced:
-                raise
-            import warnings
-
-            _DEVICE_RESCORE_FAILED = True
-            warnings.warn(
-                f"device f64 re-scoring failed ({type(e).__name__}: {e}); "
-                "falling back to host re-scoring for this process"
-            )
+    """Run the device scorer thunk when the device executor is chosen, the
+    host thunk otherwise. A device failure raises: selection never carries
+    on silently on another executor."""
+    if _use_device_rescore():
+        return device_call()
     return host_call()
 
 

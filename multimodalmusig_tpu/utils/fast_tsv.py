@@ -1,7 +1,9 @@
 """ctypes bindings for the native TSV count-matrix loader.
 
-Builds native/tsv_loader.cpp on first use (g++ -O3 -shared; cached next to
-the source) and falls back to a pure-numpy parser when no C++ toolchain is
+Builds native/tsv_loader.cpp on first use (g++ -O3 -shared) into
+native/libtsv_loader.so, which git does not track, and records the SHA-256
+of the source and flags beside it; a library whose record differs is
+rebuilt. Falls back to a pure-numpy parser when no C++ toolchain is
 available. The returned layout matches the reference's input convention
 (README.md:7): rows = vocabulary terms, columns = samples.
 """
@@ -9,6 +11,7 @@ available. The returned layout matches the reference's input convention
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -16,13 +19,52 @@ from typing import List, Tuple
 
 import numpy as np
 
-__all__ = ["read_counts_tsv", "native_available"]
+__all__ = ["read_counts_tsv", "native_available", "build_native"]
 
-_SRC = os.path.join(os.path.dirname(__file__), "..", "..", "native", "tsv_loader.cpp")
-_LIB_PATH = os.path.join(os.path.dirname(_SRC), "libtsv_loader.so")
+_NATIVE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
+_SRC = os.path.join(_NATIVE, "tsv_loader.cpp")
+_LIB_PATH = os.path.join(_NATIVE, "libtsv_loader.so")
+# Portable flags: the library is built where it runs, but a checkout copied
+# to another host carries it along.
+_FLAGS = ("-O3", "-shared", "-fPIC")
 _lock = threading.Lock()
 _lib = None
 _tried = False
+
+
+def _source_key(src: str) -> str:
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    return h.hexdigest()
+
+
+def build_native(src: str = _SRC, lib_path: str = _LIB_PATH) -> str:
+    """Build the loader library from `src` unless `lib_path` was already
+    built from the same source and flags (its `.sha256` record says so).
+    Returns `lib_path`; raises CalledProcessError/OSError on failure."""
+    key = _source_key(src)
+    stamp = lib_path + ".sha256"
+    try:
+        with open(stamp) as f:
+            built = f.read().strip()
+    except OSError:
+        built = None
+    if built == key and os.path.exists(lib_path):
+        return lib_path
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    subprocess.run(
+        ["g++", *_FLAGS, src, "-o", tmp], check=True, capture_output=True
+    )
+    os.replace(tmp, lib_path)
+    with open(tmp, "w") as f:
+        f.write(key + "\n")
+    os.replace(tmp, stamp)
+    return lib_path
 
 
 def _build_and_load():
@@ -31,16 +73,8 @@ def _build_and_load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        src = os.path.abspath(_SRC)
-        lib_path = os.path.abspath(_LIB_PATH)
         try:
-            if not os.path.exists(lib_path) or os.path.getmtime(lib_path) < os.path.getmtime(src):
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC", src, "-o", lib_path],
-                    check=True,
-                    capture_output=True,
-                )
-            lib = ctypes.CDLL(lib_path)
+            lib = ctypes.CDLL(build_native())
             lib.tsv_parse.restype = ctypes.c_void_p
             lib.tsv_parse.argtypes = [ctypes.c_char_p]
             for fn in ("tsv_num_terms", "tsv_num_samples", "tsv_terms_bytes", "tsv_header_bytes"):

@@ -3,7 +3,7 @@
 The reference represents each document x modality as an (n, 2) integer matrix
 of (vocab_index, count) rows with 1-based vocab indices (src/utils.jl:1-7).
 That sparse ragged form is kept at the I/O boundary for API parity, but the
-TPU compute path uses dense (D, V) count tensors: at V = 96/48 terms a dense
+accelerator compute path uses dense (D, V) count tensors: at V = 96/48 terms a dense
 row is smaller than the ragged bookkeeping and every update becomes a padded
 batched matmul (SURVEY.md §7.1).
 

@@ -181,11 +181,7 @@ def cov2cor(C: np.ndarray) -> np.ndarray:
     return C / np.outer(sigma, sigma)
 
 
-def topic_dataframe(model: MMCTM, terms: List[List[str]], modalities: List[str]):
-    """Tidy signature table (run_mmctm.jl:189-209): one row per
-    modality x topic x vocab item with its probability."""
-    import pandas as pd
-
+def _topic_rows(model: MMCTM, terms: List[List[str]], modalities: List[str]):
     rows = []
     gamma = model.gamma
     for m in range(model.M):
@@ -194,18 +190,15 @@ def topic_dataframe(model: MMCTM, terms: List[List[str]], modalities: List[str])
             probs = g / g.sum()
             for v in range(model.V[m]):
                 rows.append(
-                    (modalities[m], k + 1, v + 1, terms[m][v], probs[v])
+                    (modalities[m], k + 1, v + 1, terms[m][v], float(probs[v]))
                 )
-    return pd.DataFrame(
-        rows, columns=["modality", "topic", "value", "term", "probability"]
-    )
+    return rows
 
 
-def prop_dataframe(model: MMCTM, samples: List[str], modalities: List[str]):
-    """Per-sample signature proportions: softmax of λ per modality block
-    (run_mmctm.jl:216-240)."""
-    import pandas as pd
+_TOPIC_COLUMNS = ["modality", "topic", "value", "term", "probability"]
 
+
+def _prop_table(model: MMCTM, modalities: List[str]):
     props = np.empty((sum(model.K), model.D))
     for d, lam in enumerate(model.lam):
         start = 0
@@ -217,9 +210,37 @@ def prop_dataframe(model: MMCTM, samples: List[str], modalities: List[str]):
     labels = [
         f"{modalities[m]}-{k + 1}" for m in range(model.M) for k in range(model.K[m])
     ]
+    return labels, props
+
+
+def topic_dataframe(model: MMCTM, terms: List[List[str]], modalities: List[str]):
+    """Tidy signature table (run_mmctm.jl:189-209): one row per
+    modality x topic x vocab item with its probability."""
+    import pandas as pd
+
+    return pd.DataFrame(_topic_rows(model, terms, modalities), columns=_TOPIC_COLUMNS)
+
+
+def prop_dataframe(model: MMCTM, samples: List[str], modalities: List[str]):
+    """Per-sample signature proportions: softmax of λ per modality block
+    (run_mmctm.jl:216-240)."""
+    import pandas as pd
+
+    labels, props = _prop_table(model, modalities)
     df = pd.DataFrame(props, columns=samples)
     df.insert(0, "topic", labels)
     return df
+
+
+def _write_tsv(path, header, rows):
+    """A tab-separated table, formatted as pandas' to_csv(sep="\t",
+    index=False) writes it, without needing pandas."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w.writerow(header)
+        w.writerows(rows)
 
 
 def write_mean(path, model):
@@ -235,8 +256,12 @@ def write_cor(path, model):
 
 
 def write_sigs(path, model, terms, modalities):
-    topic_dataframe(model, terms, modalities).to_csv(path, sep="\t", index=False)
+    _write_tsv(path, _TOPIC_COLUMNS, _topic_rows(model, terms, modalities))
 
 
 def write_props(path, model, samples, modalities):
-    prop_dataframe(model, samples, modalities).to_csv(path, sep="\t", index=False)
+    labels, props = _prop_table(model, modalities)
+    _write_tsv(
+        path, ["topic", *samples],
+        ([label, *map(float, row)] for label, row in zip(labels, props)),
+    )

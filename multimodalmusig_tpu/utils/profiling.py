@@ -6,7 +6,7 @@ around the restart pmap (run_mmctm.jl:101-104). Here (SURVEY.md §5):
 
   * every FitResult carries the full ll trajectory, iteration count, and
     convergence flag — metrics come out of the jitted loop as arrays;
-  * `trace(logdir)` wraps `jax.profiler` for XLA/TPU timeline capture,
+  * `trace(logdir)` wraps `jax.profiler` for XLA/GPU timeline capture,
     viewable in TensorBoard/Perfetto;
   * `debug_nans()` / `check_finite(tree)` for numerical debugging — races
     are structurally excluded (pure-functional updates), so the analogue of
@@ -28,7 +28,7 @@ __all__ = ["trace", "annotate", "debug_nans", "check_finite", "Timer"]
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[None]:
-    """Capture an XLA/TPU profiler trace of the enclosed block.
+    """Capture an XLA/GPU profiler trace of the enclosed block.
 
     View with TensorBoard (`tensorboard --logdir <logdir>`) or Perfetto.
     """

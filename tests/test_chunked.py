@@ -74,8 +74,8 @@ def test_compact_schedule_excludes_chunk_iters(mmctm_fixture):
 
 class TestSuggestCompactSchedule:
     def _brca_like(self, rng, R=1000):
-        """Iteration distribution shaped like the measured BRCA R=1000 one
-        (p50 132, p75 185, p90 233, max 406 — NOTES.md round 3)."""
+        """Iteration distribution shaped like a BRCA R=1000 one: a long
+        right tail, max about three times the median."""
         base = rng.gamma(shape=9.0, scale=16.0, size=R) + 60
         return np.clip(base, 60, 406).astype(int)
 
@@ -159,7 +159,7 @@ def test_two_phase_single_lane_and_maxiter_capped(mmctm_fixture):
 def test_empty_schedule_takes_single_dispatch_path(mmctm_fixture, monkeypatch):
     """compact_schedule=() — suggest_compact_schedule's 'no boundary pays'
     answer — must route to the single-dispatch fit, not the chunked driver
-    (which would add round-trips and, on TPU, a differently-rounded
+    (which would add round-trips and, on a GPU, a differently-rounded
     executable for zero compaction)."""
     model = MMCTM(mmctm_fixture["K"], mmctm_fixture["alpha"], mmctm_fixture["X"])
     alpha = jnp.asarray([0.1, 0.1], model.config.dtype)
@@ -178,8 +178,9 @@ def test_empty_schedule_takes_single_dispatch_path(mmctm_fixture, monkeypatch):
 def test_selection_invariant_under_compaction(mmctm_fixture):
     """Restart SELECTION (per-modality stage-1 winners + the dense-rank
     pick) must not depend on the compaction schedule. On CPU trajectories
-    are bit-identical so this is exact; the TPU analogue — where compacted
-    phases are different executables whose f32 rounding drifts ~1e-3 — is
+    are bit-identical so this is exact; the accelerator analogue — where
+    compacted phases are different executables whose f32 rounding drifts —
+    is
     measured and recorded by tools/selection_stability.py (near-tie margin
     vs cross-run drift)."""
     model = MMCTM(mmctm_fixture["K"], mmctm_fixture["alpha"], mmctm_fixture["X"])

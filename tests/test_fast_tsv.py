@@ -66,3 +66,23 @@ def test_malformed_rows_raise(tmp_path):
         p.write_text(body)
         with pytest.raises((OSError, ValueError)):
             fast_tsv.read_counts_tsv(str(p))
+
+
+def test_native_builds_from_tracked_source(tmp_path):
+    """The library is built from native/tsv_loader.cpp, records the source
+    hash beside it, and is rebuilt only when that hash changes."""
+    import shutil
+
+    src = tmp_path / "tsv_loader.cpp"
+    shutil.copy(fast_tsv._SRC, src)
+    lib = str(tmp_path / "libtsv_loader.so")
+    assert fast_tsv.build_native(str(src), lib) == lib
+    stamp = (tmp_path / "libtsv_loader.so.sha256").read_text().strip()
+    assert stamp == fast_tsv._source_key(str(src))
+    inode = (tmp_path / "libtsv_loader.so").stat().st_ino
+    fast_tsv.build_native(str(src), lib)  # same source: no rebuild
+    assert (tmp_path / "libtsv_loader.so").stat().st_ino == inode
+    src.write_text(src.read_text() + "\n// changed\n")
+    fast_tsv.build_native(str(src), lib)  # new hash: rebuilt
+    assert (tmp_path / "libtsv_loader.so").stat().st_ino != inode
+    assert (tmp_path / "libtsv_loader.so.sha256").read_text().strip() != stamp

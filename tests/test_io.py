@@ -112,6 +112,27 @@ class TestWriters:
         assert list(props.columns) == ["topic", "samp1", "samp2"]
         assert len(props) == 5
 
+    def test_tsv_writers_match_pandas_bytes(self, tmp_path, mmctm_fixture):
+        """The CLI's sigs/props writers need no pandas, and write exactly
+        what the DataFrame helpers' to_csv writes."""
+        model = MMCTM(mmctm_fixture["K"], mmctm_fixture["alpha"], mmctm_fixture["X"])
+        model.fit(maxiter=5, verbose=False)
+        terms = [[f"t{v}" for v in range(4)], [f"s,{v}" for v in range(4)]]
+        modalities = ["SNV", "SV"]
+        samples = ["samp1", "samp 2"]
+        io_mod.write_sigs(tmp_path / "sigs.tsv", model, terms, modalities)
+        io_mod.write_props(tmp_path / "props.tsv", model, samples, modalities)
+        io_mod.topic_dataframe(model, terms, modalities).to_csv(
+            tmp_path / "sigs_pd.tsv", sep="\t", index=False
+        )
+        io_mod.prop_dataframe(model, samples, modalities).to_csv(
+            tmp_path / "props_pd.tsv", sep="\t", index=False
+        )
+        for name in ("sigs", "props"):
+            assert (tmp_path / f"{name}.tsv").read_bytes() == (
+                tmp_path / f"{name}_pd.tsv"
+            ).read_bytes()
+
 
 class TestCLI:
     @requires_brca_data

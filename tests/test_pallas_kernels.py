@@ -1,64 +1,75 @@
-"""Pallas kernel correctness vs. the pure-jnp solvers (interpret mode on CPU;
-the same kernels compile natively on TPU).
+"""The fused λ kernel (Pallas through Triton) against the pure-jnp solver, in
+interpret mode on the CPU; its Triton lowering for CUDA, and the gate that
+decides where it runs."""
 
-Also covers the DEMOTED kernel experiments (tools/pallas_experiments/ —
-fused E-step, fused θ-moments): they measured slower than XLA at every
-operating point and left the package in round 5, but their parity pins stay
-live so the archived experiments remain correct starting points."""
+import types
 
-import os
-import sys
-
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from multimodalmusig_tpu.models import ctm_base
+from multimodalmusig_tpu.ops.pallas import lambda_kernel as lk
 from multimodalmusig_tpu.ops.pallas.lambda_kernel import maximize_lambda_fused
 from multimodalmusig_tpu.ops.solvers import lambda_grad, maximize_lambda
 
-sys.path.insert(
-    0,
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 "tools"),
-)
+
+def _problem(rng, B, MK, lanes=None):
+    shape = (B, MK) if lanes is None else (lanes, B, MK)
+    n = 1 if lanes is None else lanes
+    invS = []
+    for _ in range(n):
+        A = rng.normal(size=(MK, MK))
+        invS.append(np.eye(MK) + 0.05 * (A @ A.T) / MK)
+    invS = np.stack(invS) if lanes is not None else invS[0]
+    mu_shape = (MK,) if lanes is None else (lanes, MK)
+    f = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
+    return dict(
+        lam0=f(np.zeros(shape)),
+        nu=f(rng.uniform(0.5, 1.5, shape)),
+        ndz=f(rng.uniform(1, 10, shape)),
+        st=f(rng.uniform(0, 5, shape)),
+        mu=f(rng.normal(size=mu_shape)),
+        invS=f(invS),
+    )
+
+
+def _args(p, sl=slice(None)):
+    return (p["lam0"][sl], p["nu"][sl], p["ndz"][sl], p["st"][sl], p["mu"], p["invS"])
 
 
 @pytest.fixture
 def problem(rng):
-    MK, B = 14, 96
-    A = rng.normal(size=(MK, MK))
-    invS = jnp.asarray(np.eye(MK) + 0.05 * (A @ A.T) / MK, jnp.float32)
-    return dict(
-        lam0=jnp.zeros((B, MK), jnp.float32),
-        nu=jnp.asarray(rng.uniform(0.5, 1.5, (B, MK)), jnp.float32),
-        ndz=jnp.asarray(rng.uniform(1, 10, (B, MK)), jnp.float32),
-        st=jnp.asarray(rng.uniform(0, 5, (B, MK)), jnp.float32),
-        mu=jnp.asarray(rng.normal(size=MK), jnp.float32),
-        invS=invS,
-    )
+    return _problem(rng, 96, 14)
 
 
 def test_fused_lambda_matches_jnp_solver(problem):
-    ref = np.asarray(
-        maximize_lambda(
-            problem["lam0"], problem["nu"], problem["ndz"], problem["st"],
-            problem["mu"], problem["invS"],
-        )
-    )
-    fused = np.asarray(
-        maximize_lambda_fused(
-            problem["lam0"], problem["nu"], problem["ndz"], problem["st"],
-            problem["mu"], problem["invS"], tile_b=128, interpret=True,
-        )
-    )
+    ref = np.asarray(maximize_lambda(*_args(problem)))
+    fused = np.asarray(maximize_lambda_fused(*_args(problem), interpret=True))
+    np.testing.assert_allclose(fused, ref, atol=5e-5)
+
+
+@pytest.mark.parametrize("launch", [(16, 4), (32, 8), (64, 4)])
+def test_launch_override_matches_default(problem, launch):
+    """The sweep's (documents per program, warps) override changes only the
+    grid: 96 documents in ragged tiles of 16, 32 or 64 give the same λ."""
+    default = np.asarray(maximize_lambda_fused(*_args(problem), interpret=True))
+    got = np.asarray(maximize_lambda_fused(*_args(problem), launch=launch, interpret=True))
+    np.testing.assert_allclose(got, default, atol=1e-6)
+
+
+@pytest.mark.parametrize("MK", [4, 19, 32])
+def test_fused_lambda_widths(rng, MK):
+    """Every padding class: 4 -> 16 columns, 19 -> 32, 32 -> 32 (none)."""
+    p = _problem(rng, 40, MK)
+    ref = np.asarray(maximize_lambda(*_args(p)))
+    fused = np.asarray(maximize_lambda_fused(*_args(p), interpret=True))
     np.testing.assert_allclose(fused, ref, atol=5e-5)
 
 
 def test_fused_lambda_is_stationary(problem):
-    fused = maximize_lambda_fused(
-        problem["lam0"], problem["nu"], problem["ndz"], problem["st"],
-        problem["mu"], problem["invS"], tile_b=128, interpret=True,
-    )
+    fused = maximize_lambda_fused(*_args(problem), interpret=True)
     g = np.asarray(
         jnp.stack(
             [
@@ -75,192 +86,147 @@ def test_fused_lambda_is_stationary(problem):
 
 
 def test_fused_lambda_ragged_batch(problem):
-    """B not a multiple of tile_b exercises the padding path."""
+    """B not a multiple of the document tile exercises the masked rows."""
     sl = slice(0, 33)
-    fused = np.asarray(
-        maximize_lambda_fused(
-            problem["lam0"][sl], problem["nu"][sl], problem["ndz"][sl],
-            problem["st"][sl], problem["mu"], problem["invS"],
-            tile_b=128, interpret=True,
-        )
-    )
-    ref = np.asarray(
-        maximize_lambda(
-            problem["lam0"][sl], problem["nu"][sl], problem["ndz"][sl],
-            problem["st"][sl], problem["mu"], problem["invS"],
-        )
-    )
+    fused = np.asarray(maximize_lambda_fused(*_args(problem, sl), interpret=True))
+    ref = np.asarray(maximize_lambda(*_args(problem, sl)))
     np.testing.assert_allclose(fused, ref, atol=5e-5)
 
 
-def test_mk_over_lane_budget_raises(problem):
-    big = jnp.zeros((8, 200), jnp.float32)
-    with pytest.raises(ValueError, match="lane budget"):
+def test_padded_topics_are_inert(problem):
+    """A problem widened by inert topics (identity rows in Σ⁻¹, ν=1 and
+    λ=μ=N/ζ=sumθ=0) solves to the same λ with the extra columns at 0 —
+    what the kernel's own padding relies on."""
+    lam0, nu, ndz, st, mu, invS = _args(problem)
+    B, MK = lam0.shape
+    pad = 3
+
+    def widen(x, fill):
+        return jnp.concatenate([x, jnp.full((B, pad), fill, x.dtype)], axis=1)
+
+    invS_w = jnp.eye(MK + pad, dtype=jnp.float32).at[:MK, :MK].set(invS)
+    wide = maximize_lambda_fused(
+        widen(lam0, 0.0), widen(nu, 1.0), widen(ndz, 0.0), widen(st, 0.0),
+        jnp.concatenate([mu, jnp.zeros(pad, jnp.float32)]), invS_w,
+        cg_iter=MK, interpret=True,
+    )
+    narrow = maximize_lambda_fused(*_args(problem), cg_iter=MK, interpret=True)
+    np.testing.assert_allclose(np.asarray(wide[:, :MK]), np.asarray(narrow), atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(wide[:, MK:]), 0.0)
+
+
+def test_mk_over_lane_budget_raises():
+    big = jnp.zeros((8, 40), jnp.float32)
+    with pytest.raises(ValueError, match="limit"):
         maximize_lambda_fused(
-            big, big, big, big, jnp.zeros(200), jnp.eye(200), interpret=True
+            big, big, big, big, jnp.zeros(40), jnp.eye(40), interpret=True
         )
 
 
-def test_restart_batched_fused_matches_per_lane(problem, rng):
-    """Each restart lane has its own mu/invSigma; the restart-batched kernel
-    must match per-lane jnp solves."""
-    from multimodalmusig_tpu.ops.pallas.lambda_kernel import (
-        maximize_lambda_fused_restarts,
-    )
-
-    R, D, MK = 3, 40, 14
-    lam0 = jnp.zeros((R, D, MK), jnp.float32)
-    nu = jnp.asarray(rng.uniform(0.5, 1.5, (R, D, MK)), jnp.float32)
-    ndz = jnp.asarray(rng.uniform(1, 10, (R, D, MK)), jnp.float32)
-    st = jnp.asarray(rng.uniform(0, 5, (R, D, MK)), jnp.float32)
-    mu = jnp.asarray(rng.normal(size=(R, MK)), jnp.float32)
-    invS = []
-    for r in range(R):
-        A = rng.normal(size=(MK, MK))
-        invS.append(np.eye(MK) + 0.05 * (A @ A.T) / MK)
-    invS = jnp.asarray(np.stack(invS), jnp.float32)
-
-    fused = np.asarray(
-        maximize_lambda_fused_restarts(
-            lam0, nu, ndz, st, mu, invS, tile_b=128, interpret=True
-        )
-    )
-    for r in range(R):
+def test_restart_batched_fused_matches_per_lane(rng):
+    """Each restart lane has its own μ/Σ⁻¹; the lane grid must match
+    per-lane jnp solves."""
+    p = _problem(rng, 40, 14, lanes=3)
+    fused = np.asarray(maximize_lambda_fused(*_args(p), interpret=True))
+    for r in range(3):
         ref = np.asarray(
-            maximize_lambda(lam0[r], nu[r], ndz[r], st[r], mu[r], invS[r])
+            maximize_lambda(p["lam0"][r], p["nu"][r], p["ndz"][r], p["st"][r],
+                            p["mu"][r], p["invS"][r])
         )
         np.testing.assert_allclose(fused[r], ref, atol=5e-5)
 
 
-class TestFusedEstep:
-    """estep_eta_fused (ζ → N/ζ → ν → λ in one kernel) vs the XLA sequence."""
-
-    def _xla_reference(self, lam, nu, N, st, mu, invS, config):
-        from multimodalmusig_tpu.models.ctm_base import (
-            calculate_Ndivzeta,
-            update_zeta,
-        )
-        from multimodalmusig_tpu.ops.solvers import maximize_nu
-
-        zeta = update_zeta(lam, nu, config)
-        ndz = calculate_Ndivzeta(N, zeta, config)
-        nu2 = maximize_nu(nu, lam, ndz, jnp.diagonal(invS)[None, :])
-        lam2 = maximize_lambda(lam, nu2, ndz, st, mu, invS)
-        return zeta, nu2, lam2
-
-    def test_matches_xla_sequence(self, rng):
-        from pallas_experiments.estep_kernel import estep_eta_fused
-
-        from multimodalmusig_tpu.models.ctm_base import CTMBaseConfig
-
-        K, B = (3, 4), 17
-        MK = sum(K)
-        config = CTMBaseConfig(K=K, V=(5, 5), D=B, dtype=jnp.float32)
-        lam = jnp.asarray(rng.standard_normal((B, MK)), jnp.float32)
-        nu = jnp.asarray(rng.uniform(0.05, 1.0, (B, MK)), jnp.float32)
-        N = jnp.asarray(rng.integers(0, 40, (B, len(K))), jnp.float32)
-        st = jnp.asarray(rng.uniform(0.0, 10.0, (B, MK)), jnp.float32)
-        mu = jnp.asarray(rng.standard_normal(MK), jnp.float32)
-        A = rng.standard_normal((MK, MK)).astype(np.float32)
-        invS = jnp.asarray(A @ A.T + 0.5 * np.eye(MK, dtype=np.float32))
-
-        got = estep_eta_fused(
-            lam, nu, N, st, mu, invS, K, tile_b=128, interpret=True
-        )
-        want = self._xla_reference(lam, nu, N, st, mu, invS, config)
-        for g, w, label in zip(got, want, ("zeta", "nu", "lam")):
-            np.testing.assert_allclose(
-                np.asarray(g), np.asarray(w), rtol=2e-5, atol=2e-6,
-                err_msg=label,
-            )
-
-    def test_zero_count_modality(self, rng):
-        # a document with zero counts in one modality: N/ζ = 0, the ν/λ
-        # solves must stay finite (the 0·exp guard)
-        from pallas_experiments.estep_kernel import estep_eta_fused
-
-        K, B = (2, 2), 5
-        MK = sum(K)
-        lam = jnp.zeros((B, MK), jnp.float32)
-        nu = jnp.ones((B, MK), jnp.float32)
-        N = jnp.asarray(rng.integers(0, 30, (B, 2)), jnp.float32).at[0, 1].set(0.0)
-        st = jnp.asarray(rng.uniform(0.0, 5.0, (B, MK)), jnp.float32).at[0, 2:].set(0.0)
-        mu = jnp.zeros(MK, jnp.float32)
-        invS = jnp.eye(MK, dtype=jnp.float32)
-        zeta, nu2, lam2 = estep_eta_fused(
-            lam, nu, N, st, mu, invS, K, tile_b=128, interpret=True
-        )
-        assert np.isfinite(np.asarray(zeta)).all()
-        assert np.isfinite(np.asarray(nu2)).all()
-        assert np.isfinite(np.asarray(lam2)).all()
+def test_fused_lambda_under_vmap(rng):
+    """The single-lane call under vmap (how the vmapped fit loops call it)
+    equals the explicit lane grid."""
+    p = _problem(rng, 37, 14, lanes=3)
+    grid = maximize_lambda_fused(*_args(p), interpret=True)
+    vm = jax.vmap(lambda *a: maximize_lambda_fused(*a, interpret=True))(*_args(p))
+    np.testing.assert_allclose(np.asarray(vm), np.asarray(grid), atol=1e-6)
 
 
-class TestThetaMoments:
-    """theta_moments_fused vs the reference einsums (interpret mode)."""
+@pytest.mark.parametrize("MK,tile,MKP", [(4, 64, 16), (14, 64, 16), (19, 32, 32), (32, 32, 32)])
+def test_launch_config(MK, tile, MKP):
+    assert lk.padded_topics(MK) == MKP
+    assert lk.launch_config(MK) == (tile, 4)
 
-    def _reference(self, lam_block, logw, X):
-        logits = lam_block[:, None, :] + logw[None, :, :]
-        theta = np.exp(logits - logits.max(axis=-1, keepdims=True))
-        theta /= theta.sum(axis=-1, keepdims=True)
-        st = np.einsum("dv,dvk->dk", X, theta)
-        ct = np.einsum("dv,dvk->kv", X, theta)
-        return st, ct
 
-    @pytest.mark.parametrize("D,V,K", [(17, 96, 7), (560, 48, 7), (33, 128, 11), (8, 5, 2)])
-    def test_matches_einsums(self, rng, D, V, K):
-        from pallas_experiments.theta_kernel import theta_moments_fused
+def _triton_ir(fn, *args):
+    """Triton IR text of every pallas_call in fn, lowered for CUDA here on
+    the CPU (lowering needs no GPU; compiling would)."""
+    from jax._src.pallas.triton import pallas_call_registration as reg
 
-        lam = rng.standard_normal((D, K)).astype(np.float32) * 2.0
-        logw = (rng.standard_normal((V, K)) - 4.0).astype(np.float32)
-        X = rng.integers(0, 30, (D, V)).astype(np.float32)
-        st, ct = theta_moments_fused(
-            jnp.asarray(lam), jnp.asarray(logw), jnp.asarray(X),
-            tile_d=16, interpret=True,
-        )
-        st_ref, ct_ref = self._reference(lam, logw, X)
-        np.testing.assert_allclose(np.asarray(st), st_ref, rtol=2e-5, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(ct), ct_ref, rtol=2e-5, atol=1e-4)
+    captured = []
+    orig = reg.lowering.lower_jaxpr_to_triton_module
 
-    def test_vocab_over_budget_raises(self, rng):
-        from pallas_experiments.theta_kernel import theta_moments_fused
+    def spy(*a, **k):
+        res = orig(*a, **k)
+        captured.append(res.module.operation.get_asm())
+        return res
 
-        with pytest.raises(ValueError):
-            theta_moments_fused(
-                jnp.zeros((4, 2)), jnp.zeros((200, 2)), jnp.zeros((4, 200)),
-                interpret=True,
-            )
+    reg.lowering.lower_jaxpr_to_triton_module = spy
+    try:
+        jax.jit(fn).trace(*args).lower(lowering_platforms=("cuda",))
+    finally:
+        reg.lowering.lower_jaxpr_to_triton_module = orig
+    return captured
 
-    def test_matches_production_moments(self, mmctm_fixture):
-        """The demoted kernel agrees with the PRODUCTION factorized moments
-        (ctm_base.theta_moments) on the reference fixture — the linkage the
-        old gate-integration test pinned before the gate was removed."""
-        from pallas_experiments.theta_kernel import theta_moments_fused
 
-        from multimodalmusig_tpu.models.ctm_base import theta_moments
-        from multimodalmusig_tpu.models.mmctm import MMCTM, smoothed_logw
+@pytest.mark.parametrize("MK", [14, 19])
+def test_triton_ir_dots_are_ieee(MK):
+    """Every tt.dot of the kernel carries IEEE input precision (Triton
+    prints only a non-default precision, e.g. `inputPrecision = tf32`):
+    the Σ⁻¹ matvecs never round their inputs to TF32."""
+    x = jnp.zeros((2, 50, MK), jnp.float32)
+    ir = _triton_ir(maximize_lambda_fused, x, x, x, x,
+                    jnp.zeros((2, MK)), jnp.zeros((2, MK, MK)))
+    assert len(ir) == 1
+    dots = [l for l in ir[0].splitlines() if "tt.dot" in l]
+    assert dots
+    assert not [l for l in dots if "inputPrecision" in l and "ieee" not in l]
 
-        model = MMCTM(
-            mmctm_fixture["K"], mmctm_fixture["alpha"], mmctm_fixture["X"],
-            dtype=jnp.float64,
-        )
-        logw = smoothed_logw(model.state)
-        st_prod, ct_prod = theta_moments(
-            model.state.lam, logw, model.Xdense, model.config
-        )
-        off = 0
-        for m in range(model.config.M):
-            K = model.config.K[m]
-            st_m, ct_m = theta_moments_fused(
-                model.config.block(model.state.lam, m).astype(jnp.float32),
-                logw[m].astype(jnp.float32),
-                model.Xdense[m].astype(jnp.float32),
-                tile_d=8, interpret=True,
-            )
-            np.testing.assert_allclose(
-                np.asarray(st_m), np.asarray(st_prod[:, off:off + K]),
-                rtol=2e-5, atol=1e-5,
-            )
-            np.testing.assert_allclose(
-                np.asarray(ct_m), np.asarray(ct_prod[m]), rtol=2e-5, atol=1e-5
-            )
-            off += K
+
+def _dev(platform):
+    return types.SimpleNamespace(platform=platform)
+
+
+@pytest.mark.parametrize(
+    "platforms,MK,dtype,want",
+    [
+        (["gpu"], 14, jnp.float32, True),
+        (["gpu"], 32, jnp.float32, True),
+        (["cpu"], 14, jnp.float32, False),
+        (["gpu"], 33, jnp.float32, False),
+        (["gpu", "gpu"], 14, jnp.float32, False),
+        (["gpu"], 14, jnp.float64, False),
+    ],
+)
+def test_gate_by_platform_mk_devices(platforms, MK, dtype, want):
+    """One GPU per program instance, MK within the kernel's limit, float32."""
+    devices = [_dev(p) for p in platforms]
+    assert ctm_base.fused_lambda_enabled(MK, dtype, devices) is want
+
+
+def test_solve_lambda_routes_by_gate(problem, monkeypatch):
+    """solve_lambda asks the gate (default device) unless force_fused says."""
+    calls = []
+    orig = lk.maximize_lambda_fused
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, interpret=True, **k)
+
+    monkeypatch.setattr(lk, "maximize_lambda_fused", spy)
+    args = _args(problem)
+    ctm_base.solve_lambda(*args)  # CPU default device: XLA path
+    assert not calls
+    ctm_base.solve_lambda(*args, force_fused=True)
+    assert len(calls) == 1
+    monkeypatch.setattr(ctm_base, "fused_lambda_enabled", lambda *a: True)
+    out = ctm_base.solve_lambda(*args)
+    assert len(calls) == 2
+    ctm_base.solve_lambda(*args, force_fused=False)
+    assert len(calls) == 2
+    np.testing.assert_allclose(
+        np.asarray(out), np.asarray(maximize_lambda(*args)), atol=5e-5
+    )

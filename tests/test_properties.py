@@ -96,7 +96,7 @@ class TestSignatureRecovery:
 
 class TestThreeModalities:
     def test_mmctm_three_modalities(self):
-        """The BASELINE.json MMCTM([7,7,5]) config shape, miniaturized."""
+        """The PCAWG-shaped MMCTM([7,7,5]) config, miniaturized."""
         rng = np.random.default_rng(0)
         D = 12
         V = [10, 8, 6]
@@ -154,7 +154,7 @@ class TestBRCAEndToEnd:
 
 class TestPrecision:
     def test_f32_trajectory_tracks_f64(self, mmctm_fixture):
-        """float32 (the TPU production dtype) must track the float64
+        """float32 (the GPU production dtype) must track the float64
         trajectory closely over a realistic number of iterations."""
         import jax.numpy as jnp
 
@@ -200,9 +200,9 @@ class TestFuzz:
 
 class TestPCAWGScale:
     def test_pcawg_shaped_config_smoke(self):
-        """PCAWG-scale shapes (BASELINE.json config 5): ~2800 samples x 3
-        modalities. Two CAVI iterations on CPU to validate shapes/memory;
-        throughput is measured on TPU via bench.py."""
+        """PCAWG-scale shapes: ~2800 samples x 3 modalities. Two CAVI
+        iterations on CPU to validate shapes/memory; throughput is measured
+        on the GPU."""
         import jax
         import jax.numpy as jnp
 

@@ -272,7 +272,7 @@ class TestIllConditionedRobustness:
 
 
 class TestBudgetPlumbing:
-    """ADVICE r2: the λ Newton/CG budgets must be raisable by callers —
+    """The λ Newton/CG budgets must be raisable by callers —
     solve_lambda/solve_eta accept overrides and CTMBaseConfig threads them
     into the fit step, so harsher-geometry datasets aren't silently stuck
     with the BRCA-tuned defaults."""

@@ -3,8 +3,7 @@ were tuned on?
 
 The capped budgets (ops/solvers.py: LAMBDA_NITER_F32_CAVI=3, polish=1,
 nu=4, CG_F32_CAVI=4) were probed to their population-quality cliffs on
-BRCA-EU and PCAWG-scale synthetic data only; ADVICE r4 flagged that a
-harsher dataset could silently degrade without error (the documented escape
+BRCA-EU and PCAWG-scale synthetic data only; a harsher dataset could silently degrade without error (the documented escape
 hatch is CTMBaseConfig.lambda_n_iter / MUSIG_F32_FULL_BUDGETS). This probe
 turns that caveat into a measurement: synthesize corpora deliberately
 harsher than both tuning workloads along the axes the solvers care about —
@@ -24,12 +23,12 @@ and fit R restarts under (a) the default capped f32 budgets and (b) the
 full f32 budgets (n=7, polish=2, nu=8, cg=min(MK,10)), same keys. The caps
 "hold" if the per-lane final-ll populations match within ~2 sem per
 modality, the best-of-R values agree to ~1e-3 (equal-quality local optima
-jitter ±1e-4 even on BRCA — BENCH_LOCAL cg_budget_r5), and every lane is
+jitter ±1e-4 even on BRCA), and every lane is
 finite in both arms.
 
-Run (TPU):  python tools/budget_robustness.py
+Run (GPU):  python tools/budget_robustness.py
             python tools/budget_robustness.py --cond 1e6 --restarts 50
-Appends {"budget_robustness_r5": ...} to BENCH_LOCAL.json with --record.
+Prints the result as JSON.
 """
 
 import argparse
@@ -40,7 +39,9 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
+from multimodalmusig_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def synthesize_harsh(rng, D, V_list, K_list, cond, doc_sigma=1.5, topic_conc=0.05,
@@ -84,15 +85,14 @@ def main():
     ap.add_argument("--maxiter", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--record", action="store_true")
     args = ap.parse_args()
 
-    if args.cpu:
-        from multimodalmusig_tpu.utils.hermetic import force_cpu
-
-        force_cpu()
-
     import jax
+
+
+    if args.cpu:
+        jax.config.update("jax_platforms", "cpu")
+
     import jax.numpy as jnp
     import numpy as np
 
@@ -166,19 +166,6 @@ def main():
         ),
     }
     print(json.dumps(out, indent=1))
-
-    if args.record:
-        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                            "BENCH_LOCAL.json")
-        with open(path) as f:
-            rec = json.load(f)
-        entry = rec.setdefault("budget_robustness_r5", {})
-        if "platform" in entry:  # flat single-tier record from an earlier run
-            entry = rec["budget_robustness_r5"] = {f"cond_{entry['cond']:g}": entry}
-        entry[f"cond_{args.cond:g}"] = out
-        with open(path, "w") as f:
-            json.dump(rec, f, indent=1)
-        print(f"recorded budget_robustness_r5 cond_{args.cond:g}")
 
 
 if __name__ == "__main__":

@@ -2,17 +2,19 @@
 (tools/iter_marginal.py: 1.16 of 1.76 ms at R=100 — the ll, γ, and μ/Σ
 updates are marginal). Ablations run inside the REAL fit step at production
 budgets; budget variants use the config's static solver fields and the
-XLA-vs-Pallas arms use config.force_fused — both are jit-static, so all
+XLA-vs-fused-kernel arms use config.force_fused — both are jit-static, so all
 arms are distinct executables in one process (unlike env-flag A/Bs, which
-silently reuse the first arm's executable — NOTES.md round 2)."""
+silently reuse the first arm's executable)."""
 
 import argparse
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from multimodalmusig_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import dataclasses
 

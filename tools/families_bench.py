@@ -1,19 +1,17 @@
-"""Restart-scale per-family benchmarks on the bundled BRCA-EU data
-(round-4 verdict #5: IMMCTM/ILDA/LDA deserved perf evidence at restart
-scale, not just single-fit smokes).
+"""Restart-scale per-family benchmarks on the bundled BRCA-EU data.
 
 Each family runs its production best-of-N entry point
 (parallel/restarts.py) at R restarts on the real data: LDA and ILDA
 best-of-N with f64-rescored argmax selection, IMMCTM with the dense-rank
 selection, MMCTM two-stage for completeness (bench.py's fit-only numbers
 are the headline; this one includes selection + rescoring). Feature
-factorizations for ILDA/IMMCTM match tools/families_smoke.py (substitution
+factorizations for ILDA/IMMCTM match chip_smoke.py (substitution
 x trinucleotide context for SNV, type x size/region for SV — the shape the
 reference's fixtures use, test/ilda.jl:4-22, test/immctm.jl:6-51).
 
 Walls are warm (each arm runs twice; the second is timed), include
-selection/rescoring, and exclude compile. Appends a families_bench record
-to BENCH_LOCAL.json unless --no-record.
+selection/rescoring, and exclude compile. Prints one JSON object per
+family and one for the run.
 """
 
 import argparse
@@ -23,7 +21,9 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
+from multimodalmusig_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -35,17 +35,14 @@ def main():
     ap.add_argument("--tol", type=float, default=1e-5)
     ap.add_argument("--auto", action="store_true",
                     help="run every family with compact_schedule='auto' "
-                         "(folded-pilot zero-config compaction); records "
-                         "families_bench_r5_auto")
-    ap.add_argument("--no-record", action="store_true")
+                         "(folded-pilot zero-config compaction)")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
-    if args.cpu:
-        from multimodalmusig_tpu.utils.hermetic import force_cpu
-
-        force_cpu()
-
     import jax
+
+    if args.cpu:
+        jax.config.update("jax_platforms", "cpu")
+
     import pandas as pd
 
     import multimodalmusig_tpu as mm
@@ -111,18 +108,6 @@ def main():
         print(name, json.dumps(out[name]))
 
     print(json.dumps(out))
-    if not args.no_record:
-        path = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "BENCH_LOCAL.json")
-        with open(path) as f:
-            data = json.load(f)
-        key = "families_bench_r5_auto" if args.auto else "families_bench_r5"
-        if R != 100:
-            key += f"_r{R}"  # don't clobber the R=100 record
-        data[key] = out
-        with open(path, "w") as f:
-            json.dump(data, f, indent=1)
 
 
 if __name__ == "__main__":

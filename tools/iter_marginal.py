@@ -1,14 +1,13 @@
 """Marginal per-component cost of the MMCTM CAVI iteration, measured by
 ablation: time the REAL fit step (fixed iteration count, capped in-loop
 budgets, fused-λ gate as production resolves it) with one component removed
-at a time. Unlike tools/component_time.py — which times components in
+at a time. Unlike timing components in
 isolation, where per-dispatch overheads and missing fusion distort the
 numbers — the difference full − ablated is the component's true marginal
 cost inside the compiled loop.
 
-Also microbenchmarks raw exp/log VPU throughput at the iteration's own
-tensor sizes (VERDICT r4 #7: measure, don't assert, the transcendental
-floor) so the ll's log bill can be compared to its speed-of-light.
+Also microbenchmarks raw exp/log throughput at the iteration's own
+tensor sizes (measure, don't assert, the transcendental floor) so the ll's log bill can be compared to its speed-of-light.
 """
 
 import argparse
@@ -16,8 +15,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from multimodalmusig_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 The λ solver runs a fixed n_iter of line-searched Newton + 4 polish steps
 (ops/solvers.py). Each Newton iteration costs 14 CG matvecs — at benchmark
-batch sizes the matvec FLOPs are the iteration's dominant VPU cost — so the
+batch sizes the matvec FLOPs are the iteration's dominant cost — so the
 minimum n_iter that still reaches machine-precision solves (the property the
 trajectory-parity oracle relies on) is worth knowing exactly.
 
@@ -16,12 +16,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multimodalmusig_tpu.utils.hermetic import force_cpu
-
-force_cpu()
-
 import jax
 
+jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -13,12 +13,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from multimodalmusig_tpu.utils.hermetic import force_cpu
-
-force_cpu()
-
 import jax
 
+jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -1,17 +1,17 @@
-"""Selection stability under TPU compaction (round-3 verdict weak #3).
+"""Selection stability under straggler compaction.
 
 Compacted phases are separate executables whose f32 rounding differs from
-the single-dispatch fit; hundreds of CAVI iterations amplify that to ~1e-3
-on a few lanes' final ll. This tool measures whether that drift can FLIP the
+the single-dispatch fit; hundreds of CAVI iterations amplify that on a few
+lanes' final ll. This tool measures whether that drift can FLIP the
 restart selection: it runs schedule vs no-schedule at the same seed and
 compares (a) the per-modality stage-1 winners (pick_optimal_modality_restarts
 — what gets grafted into stage 2, run_mmctm.jl:86-97) and (b) the dense-rank
 pick (pick_optimal_model's criterion, run_mmctm.jl:136-147), and quantifies
 the near-tie margin: the winner's ll lead over the runner-up vs the maximum
 cross-run ll drift. A lead >> drift means selection is robust; a lead within
-drift is a genuine near-tie where either pick is defensible.
-
-Appends a record to BENCH_LOCAL.json with --record.
+drift is a genuine near-tie where either pick is defensible. The
+compacted arm uses the zero-config schedule (fit_restarts_auto). Prints the
+records as JSON.
 """
 
 import argparse
@@ -20,15 +20,17 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from multimodalmusig_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 
-def compare(R, schedule, X, config, alpha, maxiter, tol):
+def compare(R, X, config, alpha, maxiter, tol):
     from multimodalmusig_tpu.parallel.rescore import (
         pick_optimal_modality_restarts_np,
         pick_optimal_restart_np,
@@ -36,24 +38,24 @@ def compare(R, schedule, X, config, alpha, maxiter, tol):
     )
     from multimodalmusig_tpu.parallel.restarts import (
         fit_restarts,
+        fit_restarts_auto,
         pick_optimal_modality_restarts,
         pick_optimal_restart,
     )
 
     key = jax.random.key(147959412)
     lls, lls64 = {}, {}
-    for label, sched in (("unchunked", None), ("schedule", schedule)):
+    kw = dict(restarts=R, maxiter=maxiter, tol=tol)
+    runs = {"unchunked": lambda: fit_restarts(key, X, config, alpha, **kw),
+            "schedule": lambda: fit_restarts_auto(key, X, config, alpha, **kw)[0]}
+    for label, run in runs.items():
         t0 = time.perf_counter()
-        result = fit_restarts(
-            key, X, config, alpha, restarts=R, maxiter=maxiter, tol=tol,
-            compact_schedule=sched,
-        )
+        result = run()
         ll = np.asarray(jax.device_get(result.ll), np.float64)
         lls[label] = ll
         t_fit = time.perf_counter() - t0
         # exact f64 re-scoring of EVERY lane via the PRODUCTION executor
-        # dispatch (device-side on TPU since late round 5 — what selection
-        # reads)
+        # dispatch (device-side on an accelerator — what selection reads)
         t0 = time.perf_counter()
         lls64[label] = rescore_mmctm(
             result.state.lam, result.state.gamma, X, config
@@ -101,14 +103,14 @@ def compare(R, schedule, X, config, alpha, maxiter, tol):
     rec = {
         "R": R,
         "schedule": list(schedule),
-        # f32 in-fit metric picks (the pre-round-5 selection inputs)
+        # f32 in-fit metric picks
         "stage1_winners_agree": bool((win_a == win_b).all()),
         "winners_unchunked": win_a.tolist(),
         "winners_schedule": win_b.tolist(),
         "dense_rank_pick_agrees": pick_a == pick_b,
         "pick_unchunked": pick_a,
         "pick_schedule": pick_b,
-        # exact f64 host re-scores (what selection reads since round 5)
+        # exact f64 host re-scores (what selection reads)
         "stage1_winners_agree_f64": bool((win_a64 == win_b64).all()),
         "winners_unchunked_f64": win_a64.tolist(),
         "winners_schedule_f64": win_b64.tolist(),
@@ -131,12 +133,10 @@ def compare(R, schedule, X, config, alpha, maxiter, tol):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--record", action="store_true", help="append to BENCH_LOCAL.json")
-    ap.add_argument("--record-key", default="selection_stability_r5")
     ap.add_argument("--skip-r1000", action="store_true")
     args = ap.parse_args()
 
-    from bench import R100_SCHEDULE, R1000_SCHEDULE, load_counts_np
+    from bench import load_counts_np
     from multimodalmusig_tpu.models.mmctm import MMCTMConfig
 
     Xnp = load_counts_np()
@@ -148,19 +148,10 @@ def main():
     alpha = jnp.asarray([0.1, 0.1], jnp.float32)
 
     recs = {"platform": jax.devices()[0].platform}
-    recs["r100"] = compare(100, R100_SCHEDULE, X, config, alpha, 1000, 1e-5)
+    recs["r100"] = compare(100, X, config, alpha, 1000, 1e-5)
     if not args.skip_r1000:
-        recs["r1000"] = compare(1000, R1000_SCHEDULE, X, config, alpha, 1000, 1e-5)
-
-    if args.record:
-        path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                            "BENCH_LOCAL.json")
-        with open(path) as f:
-            data = json.load(f)
-        data[args.record_key] = recs
-        with open(path, "w") as f:
-            json.dump(data, f, indent=1)
-        print(f"recorded {args.record_key} -> {path}")
+        recs["r1000"] = compare(1000, X, config, alpha, 1000, 1e-5)
+    print(json.dumps(recs))
 
 
 if __name__ == "__main__":

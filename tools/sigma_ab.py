@@ -1,9 +1,7 @@
 """A/B the per-iteration Σ⁻¹ computation (update_Sigma_mats' spd_inverse):
-XLA's batched cho_factor/cho_solve at (R, MK, MK) is a known ~100x-off-
-roofline case on TPU (NOTES.md round 1 replaced it with CG in the λ solve);
-the M-step still pays it once per CAVI iteration per restart lane
-(iter_marginal: mu+Sigma = 0.177 ms of 1.766 at R=100, most of it the
-inverse). Candidate: a fully unrolled static-MK Cholesky factor + unit
+XLA's batched cho_factor/cho_solve at (R, MK, MK) lowers to dynamic-slice
+While loops, and the M-step pays it once per CAVI iteration per restart
+lane. Candidate: a fully unrolled static-MK Cholesky factor + unit
 forward substitution + one HIGHEST-precision matmul — ~2·MK sequential
 steps of batched vector ops instead of XLA's dynamic-slice While loops.
 
@@ -16,8 +14,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from multimodalmusig_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
